@@ -1,0 +1,63 @@
+"""Device-side example preparation: padded raw point clouds -> voxelized
+model inputs (counterpart of ``rslo_tpu/data/prepare.py``; mean mode
+only)."""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from rslo_tpu.config.schema import PipelineCfg
+
+from ..ops.voxelize import VoxelizerConfig, voxelize_sorted_mean
+
+
+def voxelizer_config(cfg: PipelineCfg) -> VoxelizerConfig:
+    v = cfg.voxelizer
+    return VoxelizerConfig(
+        point_cloud_range=tuple(v.point_cloud_range),
+        voxel_size=tuple(v.voxel_size),
+        max_points=v.max_points_per_voxel,
+        max_voxels=v.max_voxels,
+        height_threshold=v.height_threshold,
+        block_size=v.block_size,
+    )
+
+
+def prepare_example(points: torch.Tensor, point_mask: torch.Tensor,
+                    vcfg: VoxelizerConfig,
+                    mean_mode: bool = False) -> Dict[str, torch.Tensor]:
+    """points: (L, N, F) padded float frames; point_mask: (L, N) bool.
+    Returns the voxelized example consumed by OdomNet (no batch dim)
+    with pre-encoded per-voxel mean features (``voxel_features``); the
+    normal columns 4:7 are re-normalized after averaging."""
+    if not mean_mode:
+        raise NotImplementedError(
+            "only mean-mode preparation (the SimpleVoxelXYZINormal VFE) "
+            "is ported; the (V, P, F) point-stack path is not")
+    if not torch.is_floating_point(points):
+        raise NotImplementedError(
+            "int16 transfer-quantized points are not ported")
+    vox = [voxelize_sorted_mean(points[t], point_mask[t], vcfg)
+           for t in range(points.shape[0])]
+    feats = []
+    for v in vox:
+        f = v.features
+        if f.shape[1] >= 7:
+            normal = f[:, 4:7]
+            normal = normal / torch.sqrt(
+                torch.sum(normal * normal, -1, keepdim=True) + 1e-16)
+            f = torch.cat([f[:, :4], normal, f[:, 7:]], dim=-1)
+        feats.append(f)
+    return {
+        "voxel_features": torch.stack(feats),
+        "num_points": torch.stack([v.num_points for v in vox]),
+        "coords": torch.stack([v.coords for v in vox]),
+        "voxel_mask": torch.stack([v.mask for v in vox]),
+    }
+
+
+def mean_vfe_ok(cfg) -> bool:
+    """True when the configured VFE is the plain per-voxel mean that
+    voxelize_sorted_mean emits directly."""
+    return cfg.vfe.name == "SimpleVoxelXYZINormal"

@@ -1,0 +1,113 @@
+"""Top-level odometry network: mean VFE features -> sparse middle (+cov)
+-> BEV pair encoder/decoder -> ego-motion vote (counterpart of
+``rslo_tpu/models/net.py``; eval mode, mean-mode examples).
+
+One sample at a time: a window of L frames is encoded with shared
+weights and all C(L, 2) frame pairs are predicted.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional
+
+import torch
+from torch import nn
+
+from rslo_tpu.config.schema import PipelineCfg, grid_size
+
+from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
+from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
+                     build_geometry)
+
+
+class OdomNet(nn.Module):
+    def __init__(self, cfg: PipelineCfg,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.middle.name != "SparseMiddleCov":
+            raise NotImplementedError(
+                f"middle {cfg.middle.name!r} is not ported yet")
+        self.cfg = cfg
+        self.middle = SparseMiddleCov(cfg.middle)
+        self.bev_net = BEVOdomNet(cfg.odom,
+                                  cfg.voxelizer.point_cloud_range)
+        self.reset_parameters(generator)
+        self.eval()
+
+    @property
+    def sparse_shape(self):
+        nx, ny, nz = grid_size(self.cfg.voxelizer)
+        return (nz + 1, ny, nx)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Random init drawn from ``generator``: He-normal sparse-conv
+        kernels, LeCun-normal dense convs, zero biases (identity pose
+        for the 7-channel tq heads), unit BN scales and statistics."""
+        for mod in self.modules():
+            if isinstance(mod, SpConv):
+                taps, cin, _ = mod.kernel.shape
+                mod.kernel.normal_(0.0, math.sqrt(2.0 / (taps * cin)),
+                                   generator=generator)
+                mod.bias.zero_()
+            elif isinstance(mod, nn.Conv2d):
+                fan_in = mod.weight[0].numel()
+                mod.weight.normal_(0.0, math.sqrt(1.0 / fan_in),
+                                   generator=generator)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, (MaskedBatchNorm, Norm)) and \
+                    hasattr(mod, "scale"):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.mean.zero_()
+                mod.var.fill_(1.0)
+        # the BEV net's own 1x1 convs are the 7-channel tq heads
+        for name, mod in self.bev_net.named_children():
+            if name.startswith("Conv_"):
+                mod.bias.copy_(identity_pose_bias())
+
+    def _middle_geometry(self, coords, vmask):
+        """Per-frame sparse geometry of the rulebook engine."""
+        return build_geometry(coords, vmask, self.sparse_shape,
+                              self.cfg.middle.level_capacities,
+                              lookup=self.cfg.middle.plan_lookup)
+
+    def forward(self, example: Dict[str, Any]) -> dict:
+        """example (single sample, no batch dim), as prepare_example
+        emits in mean mode:
+          voxel_features: (L, V, F) float
+          coords:         (L, V, 3) int32 zyx (-1 padding)
+          voxel_mask:     (L, V) bool
+        Returns the prediction dict (pair-major tensors)."""
+        if "voxel_features" not in example:
+            raise NotImplementedError(
+                "only mean-mode examples (voxel_features) are ported")
+        coords = example["coords"]
+        vmask = example["voxel_mask"]
+        L = coords.shape[0]
+        bevs, covs, feats = [], [], []
+        for t in range(L):
+            f = example["voxel_features"][t]
+            bev, cov = self.frame_features(f, coords[t], vmask[t])
+            bevs.append(bev[None])
+            covs.append(cov)
+            feats.append(f)
+        x1, x2 = cycle_pairs(bevs)
+        preds = self.bev_net(torch.cat([x1, x2], dim=-1))
+        preds["voxel_features"] = feats        # list[L] of (V, F)
+        preds["voxel_covs"] = covs             # list[L] of (V, 7)
+        preds["voxel_masks"] = [vmask[t] for t in range(L)]
+        preds["seq_length"] = L
+        return preds
+
+    def frame_features(self, voxel_features, coords, vmask):
+        """Encode one frame: (V, F) features + coords -> (BEV (H, W, C),
+        cov (V, 7))."""
+        return self.middle(voxel_features,
+                           self._middle_geometry(coords, vmask))
+
+    def pair_predict(self, bev_prev, bev_new) -> dict:
+        """Predict the motion from the previous frame to the new one
+        given their cached BEV features (H, W, C) each."""
+        return self.bev_net(torch.cat([bev_prev, bev_new], dim=-1)[None])
