@@ -8,17 +8,25 @@ the one module it shares with the JAX package is the pure-dataclass
 ``rslo_tpu.config.schema``.
 
 Ported so far (the streaming odometry path under the shipped
-``configs/kitti_eval_ours.json``):
+``configs/kitti_eval_ours.json`` and the self-supervised train step
+under ``configs/kitti_train_ours.json``):
   utils.synthetic   — numpy synthetic LiDAR scans
-  geometry          — quaternion/tq-map helpers the vote needs
+  geometry          — quaternion, tq-map and weighted-Kabsch helpers
   ops.voxelize      — sort-based mean voxelizer
-  ops.sparse_conv   — sorted levels + slot-map rulebooks, plain conv apply
-  ops.dma_gather    — ``gather_matmul``: the hand-written Hopper
-                      gather-GEMM sparse-conv kernel (csrc/)
+  ops.sparse_conv   — sorted levels + slot-map rulebooks (and their
+                      transposes), plain conv apply and its gradient
+  ops.dma_gather    — the hand-written Hopper kernels of the sparse conv
+                      (csrc/gather_matmul.cu, csrc/row_gather.cu) and
+                      the differentiable ``sparse_conv``
+  ops.chamfer       — the chamfer NN search (csrc/nn_search.cu)
   data.prepare      — mean-mode example preparation
-  models            — SparseMiddleCov (rulebook), BEVOdomNet, OdomNet
+  models            — SparseMiddleCov (rulebook), BEVOdomNet, OdomNet,
+                      eval and train mode
+  losses            — adaptive L2, consistency/ICP, the whole objective
+  train             — OneCycle AdamW, train state, step, checkpoints,
+                      single-card Trainer
   eval.streaming    — StreamingOdometry
-  convert           — flax variables -> torch state_dict
+  convert           — flax variables <-> torch names and layouts
 """
 
 __version__ = "0.1.0"

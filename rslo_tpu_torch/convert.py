@@ -14,11 +14,13 @@ leaf's dotted path is its torch name, with these layout changes:
 
 ``load_flax_variables`` loads the result with ``strict=True``, so every
 flax leaf is used exactly once and every torch tensor is set.
+``flax_path`` and ``to_flax_leaf`` go the other way, from a torch name
+and tensor to the flax collection, path and layout.
 """
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -58,3 +60,32 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     exactly once, no torch tensor left unset)."""
     module.load_state_dict(state_dict_from_flax(variables), strict=True)
     return module
+
+
+_STATS = ("mean", "var")
+
+
+def flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...]]:
+    """The flax (collection, path) of the port's tensor ``name`` with
+    ``ndim`` dimensions: BN running statistics live in "batch_stats",
+    everything else in "params"; a 4-D conv ``weight`` is a flax
+    ``kernel``."""
+    path = tuple(name.split("."))
+    if path[-1] == "weight" and ndim == 4:
+        path = path[:-1] + ("kernel",)
+    return ("batch_stats" if path[-1] in _STATS else "params"), path
+
+
+def to_flax_leaf(name: str, tensor: torch.Tensor) -> np.ndarray:
+    """The port's tensor as a numpy array in the flax layout of
+    ``flax_path(name, tensor.dim())`` (OIHW conv weights -> HWIO)."""
+    arr = tensor.detach().float().cpu().numpy()
+    if name.endswith(".weight") and arr.ndim == 4:
+        arr = arr.transpose(2, 3, 1, 0)
+    return arr
+
+
+def is_flax_kernel(name: str, ndim: int) -> bool:
+    """True for the leaves flax names ``kernel`` (sparse-conv kernels
+    and dense conv weights): the only ones that take weight decay."""
+    return flax_path(name, ndim)[1][-1] == "kernel"

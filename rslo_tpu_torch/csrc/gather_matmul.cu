@@ -32,6 +32,17 @@
 // or kept f32) and multiplied in fp32: the product of two bf16 values is
 // exact in fp32, so the kernel and the plain version differ only in the
 // order of their fp32 sums.
+//
+// The backward mode (MODE_BF16_DGRAD) computes the feature gradient of a
+// bf16 sparse conv as JAX's autodiff of sparse_conv_apply does:
+//   d_f[u] = sum_k valid_t[u,k] * bf16( ct[idx_t[u,k]] @ W_t[k] )
+// over the transposed rulebook (idx_t, valid_t), with W_t[k] the
+// pre-rounded, transposed (and for a submanifold conv tap-flipped)
+// weights.  The gathered cotangent rows stay f32, and each tap's
+// Cin-vector is rounded to bf16 before it joins the f32 sum.  Each
+// output row is owned by one block, so no atomics are needed and the
+// result is deterministic.  The plain version is
+// rslo_tpu_torch/ops/sparse_conv.py::sparse_conv_dgrad.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,13 +55,19 @@ constexpr int THREADS = 256;
 constexpr int MAX_C = 64;      // widest Cin / Cout taken
 constexpr int ACC = TILE_V * MAX_C / THREADS;   // outputs per thread
 
-template <bool BF16>
-__device__ __forceinline__ float round_operand(float x) {
-  if (BF16) return __bfloat162float(__float2bfloat16_rn(x));
-  return x;
+// f32 operands; bf16-rounded operands; bf16 feature-gradient mode
+enum Mode { MODE_F32 = 0, MODE_BF16 = 1, MODE_BF16_DGRAD = 2 };
+
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-template <bool BF16>
+template <int MODE>
+__device__ __forceinline__ float round_operand(float x) {
+  return MODE == MODE_BF16 ? round_bf16(x) : x;
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(THREADS)
 gather_matmul_kernel(const float* __restrict__ features,
                      const int32_t* __restrict__ idx,
@@ -92,12 +109,12 @@ gather_matmul_kernel(const float* __restrict__ features,
 
     const float* wk = weights + (int64_t)k * Cin * Cout;
     for (int e = tid; e < Cin * Cout; e += THREADS)
-      w_s[e] = round_operand<BF16>(wk[e]);
+      w_s[e] = round_operand<MODE>(wk[e]);
     for (int e = tid; e < rows * Cin; e += THREADS) {
       const int r = e / Cin;
       const int c = e - r * Cin;
       const int s = src_s[r];
-      if (s >= 0) g_s[e] = round_operand<BF16>(features[(int64_t)s * Cin + c]);
+      if (s >= 0) g_s[e] = round_operand<MODE>(features[(int64_t)s * Cin + c]);
     }
     __syncthreads();
 
@@ -109,9 +126,17 @@ gather_matmul_kernel(const float* __restrict__ features,
         const int c = o - r * Cout;
         if (src_s[r] >= 0) {
           const float* gr = g_s + r * Cin;
-          float a = acc[j];
-          for (int ci = 0; ci < Cin; ++ci) a = fmaf(gr[ci], w_s[ci * Cout + c], a);
-          acc[j] = a;
+          if (MODE == MODE_BF16_DGRAD) {
+            float a = 0.f;   // this tap's partial, rounded on its own
+            for (int ci = 0; ci < Cin; ++ci)
+              a = fmaf(gr[ci], w_s[ci * Cout + c], a);
+            acc[j] += round_bf16(a);
+          } else {
+            float a = acc[j];
+            for (int ci = 0; ci < Cin; ++ci)
+              a = fmaf(gr[ci], w_s[ci * Cout + c], a);
+            acc[j] = a;
+          }
         }
       }
     }
@@ -140,14 +165,16 @@ extern "C" {
 int gather_matmul_max_channels() { return MAX_C; }
 
 // All pointers are device pointers; bias and out_mask may be null.
+// mode: 0 f32, 1 bf16 operands, 2 bf16 feature gradient (see above).
 // Returns cudaGetLastError() after the launch (0 = launched).
 int gather_matmul_launch(const void* features, const void* idx,
                          const void* valid, const void* weights,
                          const void* bias, const void* out_mask, void* out,
-                         int Vin, int V, int K, int Cin, int Cout, int bf16,
+                         int Vin, int V, int K, int Cin, int Cout, int mode,
                          void* stream) {
   if (V <= 0 || Vin <= 0 || K <= 0 || Cin <= 0 || Cout <= 0 ||
-      Cin > MAX_C || Cout > MAX_C)
+      Cin > MAX_C || Cout > MAX_C || mode < MODE_F32 ||
+      mode > MODE_BF16_DGRAD)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((V + TILE_V - 1) / TILE_V);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -158,12 +185,15 @@ int gather_matmul_launch(const void* features, const void* idx,
   const float* b = static_cast<const float*>(bias);
   const uint8_t* m = static_cast<const uint8_t*>(out_mask);
   float* o = static_cast<float*>(out);
-  if (bf16)
-    gather_matmul_kernel<true><<<grid, THREADS, 0, s>>>(f, ix, va, w, b, m, o,
-                                                        Vin, V, K, Cin, Cout);
+  if (mode == MODE_BF16)
+    gather_matmul_kernel<MODE_BF16><<<grid, THREADS, 0, s>>>(
+        f, ix, va, w, b, m, o, Vin, V, K, Cin, Cout);
+  else if (mode == MODE_BF16_DGRAD)
+    gather_matmul_kernel<MODE_BF16_DGRAD><<<grid, THREADS, 0, s>>>(
+        f, ix, va, w, b, m, o, Vin, V, K, Cin, Cout);
   else
-    gather_matmul_kernel<false><<<grid, THREADS, 0, s>>>(f, ix, va, w, b, m, o,
-                                                         Vin, V, K, Cin, Cout);
+    gather_matmul_kernel<MODE_F32><<<grid, THREADS, 0, s>>>(
+        f, ix, va, w, b, m, o, Vin, V, K, Cin, Cout);
   return (int)cudaGetLastError();
 }
 

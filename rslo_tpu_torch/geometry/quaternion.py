@@ -36,3 +36,56 @@ def rotate_vec_by_q(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     b = torch.linalg.cross(qv, t)
     c = 2.0 * torch.linalg.cross(qv, b)
     return t + 2.0 * qw * b + c
+
+
+def hemisphere(q: torch.Tensor) -> torch.Tensor:
+    """Flip quaternion(s) onto the q_w >= 0 hemisphere (an exactly-zero
+    scalar part keeps its sign)."""
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Unit quaternion (wxyz, (..., 4)) -> rotation matrix (..., 3, 3)."""
+    q = qnormalize(q)
+    w, x, y, z = q.unbind(-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    m = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (wxyz, (..., 4)):
+    branch-free Shepperd selection of the best of four extractions."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=1e-12))
+
+    qw0 = safe_sqrt(1.0 + tr)
+    q0 = torch.stack([qw0, (m21 - m12) / qw0, (m02 - m20) / qw0,
+                      (m10 - m01) / qw0], dim=-1) * 0.5
+    qx1 = safe_sqrt(1.0 + m00 - m11 - m22)
+    q1 = torch.stack([(m21 - m12) / qx1, qx1, (m01 + m10) / qx1,
+                      (m02 + m20) / qx1], dim=-1) * 0.5
+    qy2 = safe_sqrt(1.0 - m00 + m11 - m22)
+    q2 = torch.stack([(m02 - m20) / qy2, (m01 + m10) / qy2, qy2,
+                      (m12 + m21) / qy2], dim=-1) * 0.5
+    qz3 = safe_sqrt(1.0 - m00 - m11 + m22)
+    q3 = torch.stack([(m10 - m01) / qz3, (m02 + m20) / qz3,
+                      (m12 + m21) / qz3, qz3], dim=-1) * 0.5
+
+    pivots = torch.stack([tr, m00 - m11 - m22, -m00 + m11 - m22,
+                          -m00 - m11 + m22], dim=-1)
+    best = torch.argmax(pivots, dim=-1)
+    qs = torch.stack([q0, q1, q2, q3], dim=-2)       # (..., 4 cand, 4)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    return qnormalize(torch.gather(qs, -2, idx).squeeze(-2))

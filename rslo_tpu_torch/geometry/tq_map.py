@@ -1,5 +1,5 @@
 """Dense local-transformation (tq) maps over the BEV grid (counterpart
-of ``rslo_tpu/geometry/tq_map.py``; decode side only).
+of ``rslo_tpu/geometry/tq_map.py``).
 
 Maps are channels-last ``(..., H, W, 7)`` with H indexed by the grid
 row ``i`` (world y decreasing) and W by column ``j`` (world x
@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .quaternion import qnormalize, rotate_vec_by_q
+from .quaternion import qinv, qnormalize, rotate_vec_by_q
 
 
 def grid_cell_coords(spatial_size, pc_range, dtype=torch.float32,
@@ -52,6 +52,22 @@ def _warp_coords(coords: torch.Tensor,
     r = torch.sqrt(torch.sum(xy * xy, dim=-1, keepdim=True)) + 0.1
     return torch.cat([inv_trans_factor / (r * r) * xy, coords[..., 2:]],
                      dim=-1)
+
+
+def generate_tq_map(tq: torch.Tensor, spatial_size, pc_range,
+                    inv_trans_factor: float = -1.0) -> torch.Tensor:
+    """Encode global pose(s) ``tq`` (..., 7) into a local tq map
+    (..., H, W, 7) for an (H, W) ``spatial_size``, or (..., H, W, D, 7)
+    for (H, W, D): ``t_l(c) = R(q)^-1 (t - c) + c``, ``q_l(c) = q``."""
+    coords = grid_cell_coords(spatial_size, pc_range, dtype=tq.dtype,
+                              device=tq.device)
+    coords = _warp_coords(coords, inv_trans_factor)
+    expand = (None,) * (coords.dim() - 1)
+    t_g = tq[(..., *expand, slice(0, 3))]
+    q_g = tq[(..., *expand, slice(3, 7))]
+    t_l = rotate_vec_by_q(t_g - coords, qinv(q_g)) + coords
+    q_map = q_g.expand(t_l.shape[:-1] + (4,))
+    return torch.cat([t_l, q_map], dim=-1)
 
 
 def decode_tq_map(tq_map: torch.Tensor, pc_range, dims: int = 2,

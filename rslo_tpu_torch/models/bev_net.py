@@ -1,5 +1,5 @@
 """BEV odometry encoder/decoder with confidence voting (counterpart of
-``rslo_tpu/models/bev_net.py``; eval mode, dense-predict path).
+``rslo_tpu/models/bev_net.py``; dense-predict path).
 
 Public tensors keep the JAX layout — the pair input is (P, H, W, 2C)
 and every output map is (P, H, W, C) — and the net converts to NCHW
@@ -27,6 +27,7 @@ from torch import nn
 from rslo_tpu.config.schema import OdomCfg
 
 from ..geometry import decode_tq_map
+from .middle import update_running_stats
 
 
 def identity_pose_bias(n: int = 7) -> torch.Tensor:
@@ -82,17 +83,21 @@ class MaskConv(nn.Module):
 
 
 class Norm(nn.Module):
-    """BatchNorm applied with its running statistics (eval mode),
-    computed in f32 and cast back to the input dtype.  bn_type "none"
-    is the identity; "bn" and "sync_bn" are the same at eval."""
+    """BatchNorm, computed in f32 and cast back to the input dtype.
+    Train mode normalizes with the statistics of the whole (N, H, W)
+    batch, unmasked (biased variance), and updates the running
+    statistics as 0.99 * old + 0.01 * batch; eval mode applies them.
+    bn_type "none" is the identity.  "bn" and "sync_bn" are the same on
+    one card (cross-card statistics are not ported)."""
 
     def __init__(self, num_features: int, bn_type: str = "sync_bn",
-                 eps: float = 1e-3):
+                 eps: float = 1e-3, momentum: float = 0.99):
         super().__init__()
         if bn_type not in ("none", "bn", "sync_bn"):
             raise NotImplementedError(f"bn_type={bn_type!r} is not ported")
         self.bn_type = bn_type
         self.eps = eps
+        self.momentum = momentum
         if bn_type != "none":
             self.scale = nn.Parameter(torch.ones(num_features))
             self.bias = nn.Parameter(torch.zeros(num_features))
@@ -102,13 +107,17 @@ class Norm(nn.Module):
     def forward(self, x):
         if self.bn_type == "none":
             return x
-        if self.training:
-            raise NotImplementedError(
-                "Norm: train-mode batch statistics are not ported; call "
-                ".eval()")
         shape = (1, -1, 1, 1)
-        y = (x.float() - self.mean.view(shape)) * torch.rsqrt(
-            self.var.view(shape) + self.eps)
+        xf = x.float()
+        if self.training:
+            mean = torch.mean(xf, dim=(0, 2, 3))
+            var = torch.mean(xf * xf, dim=(0, 2, 3)) - mean * mean
+            var = torch.maximum(var, torch.zeros_like(var))
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.mean, self.var
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) +
+                                                  self.eps)
         y = y * self.scale.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
@@ -154,7 +163,7 @@ class ConvBNRelu(nn.Module):
 class ConfidenceHead(nn.Module):
     """conv stack -> per-cell confidence by masked spatial softmax;
     ``tempered`` also returns the softmax of the same logits at that
-    temperature."""
+    temperature, without gradient (it only weighs the pyramid loss)."""
 
     def __init__(self, in_features: int, bn_type: str = "sync_bn"):
         super().__init__()
@@ -168,15 +177,15 @@ class ConfidenceHead(nn.Module):
         logit = _conv(self.Conv_0, h.float())
         B, _, H, W = logit.shape
 
-        def finish(T):
-            masked = torch.where(extra_mask > 0, logit, -1000.0)
+        def finish(lg, T):
+            masked = torch.where(extra_mask > 0, lg, -1000.0)
             flat = masked.reshape(B, H * W) / T
             return torch.softmax(flat, dim=-1).reshape(B, 1, H, W)
 
-        conf = finish(temperature)
+        conf = finish(logit, temperature)
         if tempered is None:
             return conf
-        return conf, finish(tempered)
+        return conf, finish(logit.detach(), tempered)
 
 
 def cycle_pairs(xs: Sequence[torch.Tensor]):

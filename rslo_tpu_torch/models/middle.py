@@ -1,12 +1,18 @@
 """Sparse 3D middle feature extractor + per-voxel covariance decoder
-(counterpart of ``rslo_tpu/models/middle.py``; rulebook engine, eval
-mode).
+(counterpart of ``rslo_tpu/models/middle.py``; rulebook engine).
 
 Channel plan: 16-16 @ full res -> 32-32 @ 1/2 -> 64s @ 1/4, 1/8 ->
 z-collapse -> dense BEV at 1/8 with C*D channels, plus an inverse-conv
 decoder from the 1/4-res level back to full resolution emitting 7
 covariance parameters per active voxel.  Each of the 20 sparse convs
-runs through the Hopper kernel ``ops.dma_gather.gather_matmul``.
+runs through the Hopper kernel ``ops.dma_gather.gather_matmul``; in
+train mode through ``ops.dma_gather.sparse_conv``, whose backward runs
+over the transposed rulebooks that ``build_geometry(transposed=True)``
+adds.
+
+``MiddleCfg.remat`` is accepted and not applied: the port's sparse
+convs keep only their (V, Cin) inputs for the backward, so the middle's
+activations stay small against the card's memory (``PERF.md``).
 
 Submodules carry the flax auto-names of the reference (``SpConv_<i>``,
 ``MaskedBatchNorm_<i>``, in creation order), so ``convert.py`` maps
@@ -23,7 +29,7 @@ from torch import nn
 from rslo_tpu.config.schema import MiddleCfg
 
 from ..ops import sparse_conv as sc
-from ..ops.dma_gather import gather_matmul
+from ..ops.dma_gather import gather_matmul, sparse_conv
 
 
 class FrameGeometry(NamedTuple):
@@ -32,6 +38,9 @@ class FrameGeometry(NamedTuple):
     sub_rb: tuple          # submanifold rulebooks for L0..L3
     down_rb: tuple         # strided-conv rulebooks L0->L1 .. L3->L4
     inv_rb: tuple          # inverse rulebooks L2->L1, L1->L0
+    # transposes of down_rb (inverse rulebooks L1->L0 .. L4->L3), for
+    # the backward; None unless built with transposed=True
+    down_rb_t: Optional[tuple] = None
 
 
 DOWN_SPECS = (
@@ -43,12 +52,13 @@ DOWN_SPECS = (
 
 
 def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
-                   capacities, lookup: Optional[str] = None
-                   ) -> FrameGeometry:
+                   capacities, lookup: Optional[str] = None,
+                   transposed: bool = False) -> FrameGeometry:
     """coords: (V, 3) zyx int32; sparse_shape: (nz, ny, nx) with the +1
     on z applied; capacities: per-level caps (L4 reuses the L3 one).
     Lookups go through dense slot maps (``lookup`` None or
-    "slot_map")."""
+    "slot_map").  ``transposed`` also builds the rulebooks the backward
+    needs (and L4's slot map, which they look up)."""
     if lookup not in (None, "slot_map"):
         raise NotImplementedError(
             f"plan_lookup={lookup!r} is not ported; only 'slot_map'")
@@ -59,14 +69,29 @@ def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
     for i, (k, s, p) in enumerate(DOWN_SPECS):
         nxt = sc.downsample_level(levels[-1], k, s, p,
                                   out_capacity=caps[min(i + 1, len(caps) - 1)])
-        if i < len(DOWN_SPECS) - 1:  # L4 is never looked up in
-            nxt = sc.with_slot_map(nxt)
+        if transposed or i < len(DOWN_SPECS) - 1:
+            nxt = sc.with_slot_map(nxt)   # L4 is looked up only by
+                                          # the transposed rulebooks
         down_rb.append(sc.build_conv_index(levels[-1], nxt, k, s, p))
         levels.append(nxt)
     sub_rb = tuple(sc.build_submanifold_index(lv) for lv in levels[:4])
     inv_rb = (sc.build_inverse_index(levels[2], levels[1], *DOWN_SPECS[1]),
               sc.build_inverse_index(levels[1], levels[0], *DOWN_SPECS[0]))
-    return FrameGeometry(tuple(levels), sub_rb, tuple(down_rb), inv_rb)
+    down_rb_t = None
+    if transposed:
+        down_rb_t = tuple(
+            sc.build_inverse_index(levels[i + 1], levels[i], *spec)
+            for i, spec in enumerate(DOWN_SPECS))
+    return FrameGeometry(tuple(levels), sub_rb, tuple(down_rb), inv_rb,
+                         down_rb_t)
+
+
+class ConvOp(NamedTuple):
+    """A conv's rulebook, the transposed rulebook its backward runs over
+    (None without one), and whether that transpose flips the taps."""
+    rb: sc.ConvIndex
+    rb_t: Optional[sc.ConvIndex] = None
+    flip_taps: bool = False
 
 
 class SpConv(nn.Module):
@@ -81,36 +106,60 @@ class SpConv(nn.Module):
         self.compute_dtype = (torch.bfloat16 if dtype == "bf16"
                               else torch.float32)
 
-    def forward(self, feats: torch.Tensor, op: sc.ConvIndex,
+    def forward(self, feats: torch.Tensor, op: ConvOp,
                 out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        return gather_matmul(feats, op.idx, op.valid, self.kernel,
+        if self.training and torch.is_grad_enabled():
+            if op.rb_t is None:
+                raise ValueError(
+                    "SpConv in train mode needs the transposed rulebook: "
+                    "build the geometry with transposed=True")
+            return sparse_conv(feats, op.rb, op.rb_t, self.kernel,
+                               self.bias, out_mask, self.compute_dtype,
+                               op.flip_taps)
+        return gather_matmul(feats, op.rb.idx, op.rb.valid, self.kernel,
                              self.bias, out_mask, self.compute_dtype)
 
 
-def _require_eval(module: nn.Module):
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__}: train-mode batch statistics are not "
-            f"ported; call .eval()")
-
-
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid rows of a (V, C) feature array, applied
-    with its running statistics (eval mode)."""
+    """BatchNorm over the valid rows of a (V, C) feature array.  Train
+    mode normalizes with the batch statistics of the valid rows
+    (n = sum(mask) + 1e-6, biased variance) and updates the running
+    statistics as 0.99 * old + 0.01 * batch; eval mode applies them."""
 
-    def __init__(self, num_features: int, eps: float = 1e-3):
+    def __init__(self, num_features: int, eps: float = 1e-3,
+                 momentum: float = 0.99):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
         self.register_buffer("var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        _require_eval(self)
-        y = (x - self.mean) * torch.rsqrt(self.var + self.eps) * self.scale \
+        if self.training:
+            m = mask[:, None].to(x.dtype)
+            n = torch.sum(m) + 1e-6
+            mean = torch.sum(x * m, dim=0) / n
+            var = torch.sum(x * x * m, dim=0) / n - mean * mean
+            var = torch.maximum(var, torch.zeros_like(var))
+            update_running_stats(self, mean, var)
+        else:
+            mean, var = self.mean, self.var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.scale \
             + self.bias
         return torch.where(mask[:, None], y, 0.0)
+
+
+@torch.no_grad()
+def update_running_stats(norm: nn.Module, mean: torch.Tensor,
+                         var: torch.Tensor):
+    """``running = momentum * running + (1 - momentum) * batch``, the
+    flax convention (torch's BatchNorm weighs the other way round and
+    keeps the unbiased variance)."""
+    mom = norm.momentum
+    norm.mean.copy_(mom * norm.mean + (1 - mom) * mean.detach())
+    norm.var.copy_(mom * norm.var + (1 - mom) * var.detach())
 
 
 class SparseMiddleCov(nn.Module):
@@ -206,19 +255,27 @@ class SparseMiddleCov(nn.Module):
 
 
 class _RulebookPlan:
-    """Op/mask provider for the sorted-level rulebook engine."""
+    """Op/mask provider for the sorted-level rulebook engine.  Every op
+    carries its transposed rulebook when the geometry has them: a
+    submanifold rulebook is its own transpose with the taps flipped;
+    inv(0) and inv(1) are transposed by down_rb[1] and down_rb[0]."""
 
     def __init__(self, geo: FrameGeometry):
         self.geo = geo
+        self.grad = geo.down_rb_t is not None
+
+    def _op(self, rb, rb_t, flip=False):
+        return ConvOp(rb, rb_t if self.grad else None, flip)
 
     def subm(self, i):
-        return self.geo.sub_rb[i]
+        return self._op(self.geo.sub_rb[i], self.geo.sub_rb[i], True)
 
     def down(self, i):
-        return self.geo.down_rb[i]
+        return self._op(self.geo.down_rb[i],
+                        (self.geo.down_rb_t or self.geo.down_rb)[i])
 
     def inv(self, i):
-        return self.geo.inv_rb[i]
+        return self._op(self.geo.inv_rb[i], self.geo.down_rb[1 - i])
 
     def mask(self, i):
         return self.geo.levels[i].mask

@@ -1,6 +1,10 @@
 """Top-level odometry network: mean VFE features -> sparse middle (+cov)
 -> BEV pair encoder/decoder -> ego-motion vote (counterpart of
-``rslo_tpu/models/net.py``; eval mode, mean-mode examples).
+``rslo_tpu/models/net.py``; mean-mode examples).
+
+A new ``OdomNet`` is in eval mode; a trainer calls ``.train()``, which
+switches every BN to batch statistics and makes the sparse convs
+differentiable.
 
 One sample at a time: a window of L frames is encoded with shared
 weights and all C(L, 2) frame pairs are predicted.
@@ -18,6 +22,26 @@ from rslo_tpu.config.schema import PipelineCfg, grid_size
 from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
                      build_geometry)
+
+
+# flax's truncated_normal: N(0, 1) cut at +-2, then scaled by
+# 1/std(that cut normal) so the result has the requested variance
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def truncated_normal_(t: torch.Tensor, variance: float,
+                      generator: Optional[torch.Generator] = None):
+    """In place: flax's ``variance_scaling(..., "truncated_normal")``
+    draw, i.e. N(0, 1) truncated to [-2, 2] (by inverse CDF) times
+    sqrt(variance) / 0.8796."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    hi = 0.5 * (1.0 + math.erf(2.0 / math.sqrt(2.0)))
+    u = torch.empty(t.shape, dtype=torch.float64)
+    u.uniform_(2 * lo - 1, 2 * hi - 1, generator=generator)
+    z = torch.clamp(torch.special.erfinv(u) * math.sqrt(2.0), -2.0, 2.0)
+    t.copy_(z * (math.sqrt(variance) / _TRUNC_STD))
+    return t
 
 
 class OdomNet(nn.Module):
@@ -41,19 +65,19 @@ class OdomNet(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
-        """Random init drawn from ``generator``: He-normal sparse-conv
-        kernels, LeCun-normal dense convs, zero biases (identity pose
+        """Random init drawn from ``generator``, with flax's
+        initializers: He-normal sparse-conv kernels (fan_in = taps*Cin,
+        scale 2), LeCun-normal dense convs (fan_in = kh*kw*Cin/groups,
+        scale 1), both truncated normals; zero biases (identity pose
         for the 7-channel tq heads), unit BN scales and statistics."""
         for mod in self.modules():
             if isinstance(mod, SpConv):
                 taps, cin, _ = mod.kernel.shape
-                mod.kernel.normal_(0.0, math.sqrt(2.0 / (taps * cin)),
-                                   generator=generator)
+                truncated_normal_(mod.kernel, 2.0 / (taps * cin), generator)
                 mod.bias.zero_()
             elif isinstance(mod, nn.Conv2d):
-                fan_in = mod.weight[0].numel()
-                mod.weight.normal_(0.0, math.sqrt(1.0 / fan_in),
-                                   generator=generator)
+                truncated_normal_(mod.weight, 1.0 / mod.weight[0].numel(),
+                                  generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, (MaskedBatchNorm, Norm)) and \
@@ -68,10 +92,13 @@ class OdomNet(nn.Module):
                 mod.bias.copy_(identity_pose_bias())
 
     def _middle_geometry(self, coords, vmask):
-        """Per-frame sparse geometry of the rulebook engine."""
+        """Per-frame sparse geometry of the rulebook engine, with the
+        transposed rulebooks when training needs gradients."""
         return build_geometry(coords, vmask, self.sparse_shape,
                               self.cfg.middle.level_capacities,
-                              lookup=self.cfg.middle.plan_lookup)
+                              lookup=self.cfg.middle.plan_lookup,
+                              transposed=(self.training and
+                                          torch.is_grad_enabled()))
 
     def forward(self, example: Dict[str, Any]) -> dict:
         """example (single sample, no batch dim), as prepare_example

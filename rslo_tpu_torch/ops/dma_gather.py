@@ -1,15 +1,27 @@
-"""Fused sparse-conv apply: the hand-written Hopper gather-GEMM kernel
-(counterpart of ``rslo_tpu/ops/dma_gather.py::dma_gather_matmul``).
+"""The sparse conv's hand-written Hopper kernels and its gradient
+(counterpart of ``rslo_tpu/ops/dma_gather.py``).
 
-``gather_matmul`` computes ``sparse_conv_apply``'s contract,
-``out[v] = sum_k valid[v,k] * f[idx[v,k]] @ W[k]`` (+ bias, zeroed where
-``out_mask`` is false), with operands rounded to the compute dtype and
-fp32 sums.  On a CUDA tensor it launches ``csrc/gather_matmul.cu`` or
-raises; on a CPU tensor it runs the plain ``sparse_conv_apply``.  There
-is no fallback from one to the other.
+  * ``gather_matmul`` computes ``sparse_conv_apply``'s contract,
+    ``out[v] = sum_k valid[v,k] * f[idx[v,k]] @ W[k]`` (+ bias, zeroed
+    where ``out_mask`` is false), with operands rounded to the compute
+    dtype and fp32 sums (``csrc/gather_matmul.cu``, replacing
+    ``dma_gather_matmul``).
+  * ``gather_matmul_dgrad`` is the same kernel's feature-gradient mode
+    over a transposed rulebook (plain version ``sparse_conv_dgrad``).
+  * ``row_gather`` is ``features[idx]`` (``csrc/row_gather.cu``,
+    replacing ``dma_row_gather``).
+  * ``sparse_conv`` is the differentiable conv: a
+    ``torch.autograd.Function`` whose backward is the two kernels above
+    plus one f32 matrix product, equal to JAX's autodiff of
+    ``sparse_conv_apply``.
+
+Each wrapper launches its kernel on a CUDA tensor or raises; on a CPU
+tensor it runs the plain version.  There is no fallback from one to the
+other.  Each counts its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -17,9 +29,14 @@ from typing import Optional
 import torch
 
 from . import _build
-from .sparse_conv import ConvIndex, sparse_conv_apply
+from .sparse_conv import (ConvIndex, round_operand, sparse_conv_apply,
+                          sparse_conv_dgrad)
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)
+
+
+# kernel modes of csrc/gather_matmul.cu
+_MODE_F32, _MODE_BF16, _MODE_BF16_DGRAD = 0, 1, 2
 
 
 @functools.cache
@@ -31,6 +48,15 @@ def _library() -> ctypes.CDLL:
     lib.gather_matmul_launch.restype = ctypes.c_int
     lib.gather_matmul_max_channels.argtypes = []
     lib.gather_matmul_max_channels.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _row_gather_library() -> ctypes.CDLL:
+    lib = _build.load_library("row_gather")
+    lib.row_gather_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    lib.row_gather_launch.restype = ctypes.c_int
     return lib
 
 
@@ -70,6 +96,44 @@ def _check(features, idx, valid, weights, bias, out_mask, compute_dtype):
     return tensors
 
 
+def _require_cuda(dev, name, tensors):
+    if dev.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous operands")
+
+
+def _launch_gather_matmul(features, idx, valid, weights, bias, out_mask,
+                          mode):
+    V, K = idx.shape
+    Vin, Cin = features.shape
+    Cout = weights.shape[2]
+    lib = _library()
+    max_c = lib.gather_matmul_max_channels()
+    if Cin > max_c or Cout > max_c:
+        raise ValueError(f"gather_matmul takes Cin, Cout <= {max_c}, got "
+                         f"{Cin}, {Cout}")
+    dev = features.device
+    out = torch.empty((V, Cout), dtype=torch.float32, device=dev)
+    if V == 0:
+        return out
+    if Vin == 0:
+        raise ValueError("gather_matmul needs at least one feature row")
+    with torch.cuda.device(dev):   # launch on the operands' card
+        err = lib.gather_matmul_launch(
+            features.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            weights.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if out_mask is None else out_mask.data_ptr(),
+            out.data_ptr(), Vin, V, K, Cin, Cout, mode,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gather_matmul kernel launch failed: CUDA error "
+                           f"{err} (V={V}, K={K}, Cin={Cin}, Cout={Cout}, "
+                           f"mode={mode})")
+    return out
+
+
 def gather_matmul(features: torch.Tensor, idx: torch.Tensor,
                   valid: torch.Tensor, weights: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
@@ -88,37 +152,178 @@ def gather_matmul(features: torch.Tensor, idx: torch.Tensor,
     if dev.type == "cpu":
         return sparse_conv_apply(features, ConvIndex(idx, valid), weights,
                                  bias, out_mask, compute_dtype)
-    if dev.type != "cuda":
-        raise ValueError(f"gather_matmul runs on cpu or cuda, not {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("gather_matmul needs contiguous operands")
-    V, K = idx.shape
-    Vin, Cin = features.shape
-    Cout = weights.shape[2]
-    lib = _library()
-    max_c = lib.gather_matmul_max_channels()
-    if Cin > max_c or Cout > max_c:
-        raise ValueError(f"gather_matmul takes Cin, Cout <= {max_c}, got "
-                         f"{Cin}, {Cout}")
-    out = torch.empty((V, Cout), dtype=torch.float32, device=dev)
-    if V == 0:
-        return out
-    if Vin == 0:
-        raise ValueError("gather_matmul needs at least one feature row")
-    with torch.cuda.device(dev):   # launch on the operands' card
-        err = lib.gather_matmul_launch(
-            features.data_ptr(), idx.data_ptr(), valid.data_ptr(),
-            weights.data_ptr(),
-            None if bias is None else bias.data_ptr(),
-            None if out_mask is None else out_mask.data_ptr(),
-            out.data_ptr(), Vin, V, K, Cin, Cout,
-            int(compute_dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gather_matmul kernel launch failed: CUDA error "
-                           f"{err} (V={V}, K={K}, Cin={Cin}, Cout={Cout})")
-    gather_matmul.launches += 1
+    _require_cuda(dev, "gather_matmul", tensors)
+    out = _launch_gather_matmul(
+        features, idx, valid, weights, bias, out_mask,
+        _MODE_BF16 if compute_dtype == torch.bfloat16 else _MODE_F32)
+    if idx.shape[0]:
+        gather_matmul.launches += 1
     return out
 
 
 gather_matmul.launches = 0
+
+
+def gather_matmul_dgrad(ct: torch.Tensor, idx_t: torch.Tensor,
+                        valid_t: torch.Tensor, weights_t: torch.Tensor,
+                        compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """Feature gradient of a sparse conv over its transposed rulebook.
+
+    ct (V, Cout) f32 output cotangent (zero on masked rows); idx_t,
+    valid_t (Vin, K) the transposed rulebook (rows into ct); weights_t
+    (K, Cout, Cin) f32, already rounded to ``compute_dtype``, transposed
+    and (for a submanifold conv) tap-flipped.  Returns (Vin, Cin) f32
+    = sum_k valid_t * round(ct[idx_t] @ weights_t[k]), each tap's
+    partial rounded to ``compute_dtype``.  Launches
+    ``csrc/gather_matmul.cu`` in its backward mode on a CUDA tensor
+    (counted in ``gather_matmul_dgrad.launches``)."""
+    tensors = _check(ct, idx_t, valid_t, weights_t, None, None,
+                     compute_dtype)
+    dev = ct.device
+    if dev.type == "cpu":
+        return sparse_conv_dgrad(ct, ConvIndex(idx_t, valid_t), weights_t,
+                                 compute_dtype)
+    _require_cuda(dev, "gather_matmul_dgrad", tensors)
+    out = _launch_gather_matmul(
+        ct, idx_t, valid_t, weights_t, None, None,
+        _MODE_BF16_DGRAD if compute_dtype == torch.bfloat16 else _MODE_F32)
+    if idx_t.shape[0]:
+        gather_matmul_dgrad.launches += 1
+    return out
+
+
+gather_matmul_dgrad.launches = 0
+
+
+def row_gather(features: torch.Tensor, idx: torch.Tensor,
+               check: bool = True) -> torch.Tensor:
+    """``features[idx]`` for features (Vin, C) of a 4-byte dtype and idx
+    (N,) int32 in [0, Vin); out-of-range indices raise.  ``check=False``
+    skips that range check (and its device sync) for indices that are in
+    range by construction, as a rulebook's are.  Launches
+    ``csrc/row_gather.cu`` on a CUDA tensor (counted in
+    ``row_gather.launches``)."""
+    if features.dim() != 2 or features.element_size() != 4:
+        raise ValueError(f"features must be (Vin, C) of a 4-byte dtype, "
+                         f"got {tuple(features.shape)} {features.dtype}")
+    if idx.dim() != 1 or idx.dtype != torch.int32:
+        raise ValueError(f"idx must be (N,) int32, got {tuple(idx.shape)} "
+                         f"{idx.dtype}")
+    if idx.device != features.device:
+        raise ValueError("row_gather operands lie on different devices")
+    N = idx.shape[0]
+    Vin, C = features.shape
+    if N and check:
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < 0 or hi >= Vin:
+            raise IndexError(f"row_gather index out of range [0, {Vin}): "
+                             f"min {lo}, max {hi}")
+    dev = features.device
+    if dev.type == "cpu":
+        return features[idx]
+    _require_cuda(dev, "row_gather", (features, idx))
+    return _launch_row_gather(features, idx)
+
+
+def _launch_row_gather(features: torch.Tensor,
+                       idx: torch.Tensor) -> torch.Tensor:
+    """The kernel launch of ``row_gather``, after its checks."""
+    N = idx.shape[0]
+    Vin, C = features.shape
+    dev = features.device
+    out = torch.empty((N, C), dtype=features.dtype, device=dev)
+    if N == 0 or C == 0:
+        return out
+    lib = _row_gather_library()
+    with torch.cuda.device(dev):
+        err = lib.row_gather_launch(
+            features.data_ptr(), idx.data_ptr(), out.data_ptr(), N, C,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"row_gather kernel launch failed: CUDA error "
+                           f"{err} (N={N}, C={C})")
+    row_gather.launches += 1
+    return out
+
+
+row_gather.launches = 0
+
+
+@contextlib.contextmanager
+def _f32_matmul():
+    """Full-f32 matrix products (no TF32), as JAX's HIGHEST."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+class _SparseConv(torch.autograd.Function):
+    """``gather_matmul`` with JAX's autodiff of ``sparse_conv_apply`` as
+    its backward.  With ct the output cotangent zeroed where
+    ``out_mask`` is false, r() the rounding to the compute dtype and W_r
+    = r(W):
+      d_features[u] = sum over (v, k) with idx[v,k] = u, valid, of
+                      r(ct[v] @ W_r[k]^T)       (transposed rulebook)
+      d_W[k]        = r(sum_v valid[v,k] r(f[idx[v,k]])^T ct[v])
+      d_bias        = sum_v ct[v]
+    """
+
+    @staticmethod
+    def forward(ctx, features, weights, bias, rulebook, rulebook_t,
+                flip_taps, out_mask, compute_dtype):
+        ctx.save_for_backward(features, weights, rulebook.idx,
+                              rulebook.valid, rulebook_t.idx,
+                              rulebook_t.valid, out_mask)
+        ctx.flip_taps = flip_taps
+        ctx.compute_dtype = compute_dtype
+        return gather_matmul(features, rulebook.idx, rulebook.valid,
+                             weights, bias, out_mask, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        features, weights, idx, valid, idx_t, valid_t, out_mask = \
+            ctx.saved_tensors
+        cdt = ctx.compute_dtype
+        ct = ct.contiguous()
+        if out_mask is not None:
+            ct = torch.where(out_mask[:, None], ct, 0.0)
+        d_feat = d_w = d_bias = None
+        if ctx.needs_input_grad[0]:
+            w_t = round_operand(weights, cdt)
+            if ctx.flip_taps:
+                w_t = w_t.flip(0)
+            d_feat = gather_matmul_dgrad(
+                ct, idx_t, valid_t, w_t.transpose(1, 2).contiguous(), cdt)
+        if ctx.needs_input_grad[1]:
+            V, K = idx.shape
+            Cin = features.shape[1]
+            # rulebook rows lie in [0, Vin) by construction (the
+            # slot-map lookup clamps them)
+            g = row_gather(features.contiguous(), idx.reshape(-1),
+                           check=False)
+            g = torch.where(valid.reshape(-1, 1), g, 0.0)
+            g = round_operand(g.reshape(V, K * Cin), cdt)
+            with _f32_matmul():
+                d_w = g.t() @ ct
+            d_w = round_operand(d_w, cdt).reshape(K, Cin, -1)
+        if ctx.needs_input_grad[2]:
+            d_bias = ct.sum(0)
+        return d_feat, d_w, d_bias, None, None, None, None, None
+
+
+def sparse_conv(features: torch.Tensor, rulebook: ConvIndex,
+                rulebook_t: ConvIndex, weights: torch.Tensor,
+                bias: Optional[torch.Tensor] = None,
+                out_mask: Optional[torch.Tensor] = None,
+                compute_dtype=torch.bfloat16,
+                flip_taps: bool = False) -> torch.Tensor:
+    """Differentiable ``gather_matmul``.  ``rulebook_t`` is the
+    transposed rulebook (for every in row, the out rows that read it,
+    per tap); ``flip_taps`` is True for a submanifold conv, whose
+    transpose is its own rulebook with the taps flipped."""
+    return _SparseConv.apply(features, weights, bias, rulebook,
+                             rulebook_t, flip_taps, out_mask,
+                             compute_dtype)

@@ -252,6 +252,26 @@ def sparse_conv_apply(features: torch.Tensor, rulebook: ConvIndex,
     return out
 
 
+def sparse_conv_dgrad(ct: torch.Tensor, rulebook_t: ConvIndex,
+                      weights_t: torch.Tensor,
+                      compute_dtype=torch.float32) -> torch.Tensor:
+    """Feature gradient of a sparse conv over its transposed rulebook —
+    the plain version of ``ops.dma_gather.gather_matmul_dgrad``.
+
+    ct: (V_out, Cout) f32 cotangent; rulebook_t: (V_in, K) rows into ct;
+    weights_t: (K, Cout, Cin) f32, already rounded to ``compute_dtype``.
+    Returns (V_in, Cin) f32 = sum_k valid * round(ct[idx] @ W_t[k]):
+    the gathered rows stay f32 and each tap's partial is rounded to
+    ``compute_dtype`` before the f32 sum over taps, which is what JAX's
+    autodiff of a bf16 ``sparse_conv_apply`` computes."""
+    V_in, K = rulebook_t.idx.shape
+    Cout = ct.shape[1]
+    g = ct[rulebook_t.idx.reshape(-1)].reshape(V_in, K, Cout)
+    g = torch.where(rulebook_t.valid[..., None], g, 0.0)
+    part = torch.bmm(g.transpose(0, 1), weights_t)     # (K, V_in, Cin)
+    return round_operand(part, compute_dtype).sum(0)
+
+
 def to_dense(features: torch.Tensor, level: SparseLevel) -> torch.Tensor:
     """Scatter (V, C) features into a dense (nz, ny, nx, C) grid
     (channels-last)."""

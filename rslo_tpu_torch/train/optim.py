@@ -1,0 +1,145 @@
+"""Optimizer and learning-rate schedules (counterpart of
+``rslo_tpu/train/optim.py``, which builds them from optax).
+
+``build_optimizer`` gives the same update as the optax chain there:
+global-norm clipping over every trainable leaf (parameters and loss
+alphas together), Adam with b1 from the OneCycle momentum schedule,
+b2 0.99 and eps 1e-8, decoupled weight decay on the flax ``kernel``
+leaves only (the sparse-conv kernels and the dense conv weights, never
+BN terms, biases or alphas), and a step of -lr from the OneCycle lr
+schedule.  The schedules are evaluated at the optimizer's own update
+count, as optax's ``inject_hyperparams`` does, and in f32 like the JAX
+schedules.  Per-module lr multipliers (``group_lr_mult``, empty in the
+shipped configs) are not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict
+
+import torch
+
+from rslo_tpu.config.schema import OptimizerCfg, TrainCfg
+
+_F32 = torch.float32
+
+
+def _cosine_ramp(a: float, b: float, frac: torch.Tensor) -> torch.Tensor:
+    """a + (b - a) * 0.5 * (1 - cos(pi * frac)) in f32."""
+    return a + (b - a) * 0.5 * (1 - torch.cos(math.pi * frac))
+
+
+def onecycle_lr(cfg: OptimizerCfg, total_steps: int) -> Callable:
+    """OneCycle lr: cosine warmup from lr_max/div to lr_max over
+    pct_start of the steps, then cosine anneal to ~0."""
+    lr_max = cfg.lr_max
+    lr_start = lr_max / cfg.onecycle_div_factor
+    warm = max(int(total_steps * cfg.onecycle_pct_start), 1)
+
+    def sched(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=_F32)
+        warm_f = torch.tensor(warm, dtype=_F32)
+        up = _cosine_ramp(lr_start, lr_max, torch.minimum(step, warm_f) /
+                          warm_f)
+        t = torch.clamp((step - warm_f) / max(total_steps - warm, 1),
+                        0.0, 1.0)
+        down = lr_max * 0.5 * (1 + torch.cos(math.pi * t)) + 1e-8
+        return torch.where(step < warm_f, up, down)
+
+    return sched
+
+
+def onecycle_momentum(cfg: OptimizerCfg, total_steps: int) -> Callable:
+    """OneCycle momentum (Adam's b1): m0 -> m1 over the warmup, then
+    back to m0."""
+    m0, m1 = cfg.onecycle_moms
+    warm = max(int(total_steps * cfg.onecycle_pct_start), 1)
+
+    def sched(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=_F32)
+        warm_f = torch.tensor(warm, dtype=_F32)
+        up = _cosine_ramp(m0, m1, torch.minimum(step, warm_f) / warm_f)
+        t = torch.clamp((step - warm_f) / max(total_steps - warm, 1),
+                        0.0, 1.0)
+        down = _cosine_ramp(m1, m0, t)
+        return torch.where(step < warm_f, up, down)
+
+    return sched
+
+
+@dataclasses.dataclass
+class AdamState:
+    """Update count and Adam moments, keyed by trainable name."""
+    count: int
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+
+    def state_dict(self) -> dict:
+        return {"count": self.count, "mu": self.mu, "nu": self.nu}
+
+    @classmethod
+    def from_state_dict(cls, d: dict) -> "AdamState":
+        return cls(int(d["count"]), dict(d["mu"]), dict(d["nu"]))
+
+
+class OneCycleAdamW:
+    """The optax chain of the JAX package's ``build_optimizer`` on a
+    dict of named tensors.  ``decays(name)`` says whether a trainable
+    takes weight decay."""
+
+    def __init__(self, cfg: OptimizerCfg, train_cfg: TrainCfg,
+                 decays: Callable[[str], bool]):
+        self.cfg = cfg
+        self.lr = onecycle_lr(cfg, train_cfg.steps)
+        self.b1 = onecycle_momentum(cfg, train_cfg.steps)
+        self.b2 = 0.99
+        self.eps = 1e-8
+        self.decays = decays
+
+    def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
+        return AdamState(0, {k: torch.zeros_like(p) for k, p in
+                             params.items()},
+                         {k: torch.zeros_like(p) for k, p in
+                          params.items()})
+
+    @torch.no_grad()
+    def step(self, params: Dict[str, torch.Tensor],
+             grads: Dict[str, torch.Tensor],
+             state: AdamState) -> torch.Tensor:
+        """Update ``params`` and ``state`` in place from ``grads``;
+        returns the global gradient norm (before clipping)."""
+        dev = next(iter(params.values())).device
+        g_norm = torch.sqrt(sum(torch.sum(g.float() * g.float())
+                                for g in grads.values()))
+        max_norm = self.cfg.grad_clip_norm
+        clip = g_norm >= max_norm
+        lr = self.lr(state.count).to(dev)
+        b1 = self.b1(state.count).to(dev)
+        count = state.count + 1
+        bc1 = 1 - b1 ** count
+        bc2 = 1 - torch.tensor(self.b2, dtype=_F32, device=dev) ** count
+        for name, p in params.items():
+            g = grads[name]
+            g = torch.where(clip, g / g_norm * max_norm, g)
+            mu = (1 - b1) * g + b1 * state.mu[name]
+            nu = (1 - self.b2) * (g * g) + self.b2 * state.nu[name]
+            state.mu[name], state.nu[name] = mu, nu
+            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            if self.decays(name):
+                u = u + self.cfg.weight_decay * p
+            p.add_(-1.0 * lr * u)
+        state.count = count
+        return g_norm
+
+
+def build_optimizer(cfg: OptimizerCfg, train_cfg: TrainCfg,
+                    decays: Callable[[str], bool]) -> OneCycleAdamW:
+    """The JAX package's optimizer; ``decays(name)`` marks the flax
+    ``kernel`` leaves."""
+    if cfg.optimizer != "adam":
+        raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not "
+                                  f"ported; only 'adam'")
+    if cfg.group_lr_mult:
+        raise NotImplementedError("group_lr_mult is not ported")
+    return OneCycleAdamW(cfg, train_cfg, decays)
