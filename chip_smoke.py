@@ -3,44 +3,62 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``rslo_tpu_torch/csrc/`` and drives
-its two main paths with seeded random weights: the serving path,
+its main paths with seeded random weights: the serving path,
 ``StreamingOdometry``, at the full width of ``configs/kitti_eval_ours.json``,
 and the self-supervised train step, ``Trainer.fit``, at the full width
-of ``configs/kitti_train_ours.json``.  Phases (each one exits non-zero
-when it fails):
+of ``configs/kitti_train_ours.json``, each on the rulebook engine and on
+the band engine (``middle.engine="band"`` with the schema's band
+defaults: block 256, windows (384, 1280, 768), min_channels 0, so every
+one of the 20 convs of a frame gets a band plan).  Phases (each one
+exits non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
-  3. hold ``gather_matmul`` against its plain version on the card, at
-     the 20 sparse-conv calls of one KITTI-scale frame, in bf16 and f32,
-     plus an edge case (all-invalid rows, masked rows, ragged V, NaN
-     rows that only invalid taps point at)
+  3. hold ``gather_matmul`` (B1) against its plain version on the card,
+     at the 20 sparse-conv calls of one KITTI-scale frame, in bf16 and
+     f32, plus an edge case (all-invalid rows, masked rows, ragged V,
+     NaN rows that only invalid taps point at)
   4. stream 8 synthetic KITTI-scale scans: finite poses, exactly 20
      kernel launches per scan, pose after scan 2 == the two-frame
      forward
   5. time streaming, the two-frame forward and the kernel vs its plain
      version
-  6. ``nn_search`` (B3) bit-equal to its plain version at the deployed
+  6. band engine, serving: the overflow audit (every plan's overflow
+     count at most half its capacity); ``band_matmul`` (B4) and
+     ``band_gather`` (B5) against their plain versions at the 20 band
+     convs of the frame in bf16 and f32 (B5 bit-equal), plus edge cases
+     (an overflow-heavy tiny-window plan, all-invalid ``sel``, a ragged
+     V, NaN rows that only ``sel = -1`` would point at); 8 scans through
+     ``StreamingOdometry``: exactly 20 B4 and 0 ``gather_matmul``
+     launches per scan, pose after scan 2 == the two-frame forward;
+     timing of streaming, the two-frame forward, and B4 and B5 against
+     their plain versions and against B1 at the same conv
+  7. ``nn_search`` (B3) bit-equal to its plain version at the deployed
      3 x 20000 x 20000, plus ties, an all-invalid tgt, masked src rows
      and ragged N, M
-  7. ``row_gather`` (B2) bit-equal to ``features[idx]`` at the L0 im2col
-  8. the sparse conv's backward (``gather_matmul_dgrad`` + ``row_gather``
-     + one f32 product) against torch autograd through the plain
-     ``sparse_conv_apply``, at the 20 conv calls of one frame, bf16, f32
-  9. train: ``Trainer.fit`` for 2 warmup and 2 post-warmup steps on
+  8. ``row_gather`` (B2) bit-equal to ``features[idx]`` at the L0 im2col
+  9. the sparse conv's backward against torch autograd through the
+     plain conv, at the 20 conv calls of one frame, bf16 and f32: on the
+     rulebook engine (``gather_matmul_dgrad`` + ``row_gather`` + one f32
+     product) and on the band engine (B4 over the flipped weights and B5
+     for the submanifold plans, the rulebook backward for the others)
+ 10. train: ``Trainer.fit`` for 2 warmup and 2 post-warmup steps on
      3-frame windows of 100k-point scans padded to 131072 (for this run
      only ``loss.warmup_steps`` is 1: a step is a warmup step while its
-     index, from 0, is <= warmup_steps); finite metrics, changed
-     parameters and statistics, each kernel's launches per step equal to
-     the prediction; the checkpoint written and restored
- 10. time the train step (both variants), peak device memory, and each
-     new kernel against its plain version
-     (phases 5 and 10 run before 11 and 12, whose CPU threads would
+     index, from 0, is <= warmup_steps), on each engine; finite metrics,
+     changed parameters and statistics, each kernel's launches per step
+     equal to the prediction worked out from the convs' ops; the
+     checkpoint written and restored
+ 11. time the train step (both variants, both engines), peak device
+     memory, and each backward kernel against its plain version
+     (phases 5, 6 and 11 run before 12 and 13, whose CPU threads would
      share the host)
- 11. the two-frame forward on the card against the same model on the
-     CPU (plain versions), in float32 at the same widths
- 12. one f32 train step on the card against the CPU, same weights and
-     batch: loss terms and per-leaf gradients
+ 12. the two-frame forward on the card against the same model on the
+     CPU (plain versions), in float32 at the same widths; and the band
+     engine against the rulebook engine on the card, in float32
+ 13. one f32 train step on the card against the CPU, same weights and
+     batch: loss terms and per-leaf gradients; and the band engine's f32
+     step against the rulebook engine's on the card
 
 The last two lines of standard output are the kernel summary (JSON)
 and the result (JSON); the card's ``nvidia-smi`` line comes before.
@@ -62,8 +80,13 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "configs", "kitti_eval_ours.json")
 TRAIN_CONFIG = os.path.join(REPO, "configs", "kitti_train_ours.json")
 TRAIN_DIR = os.path.join(REPO, "build", "smoke_train")
-KERNELS = ("gather_matmul", "row_gather", "nn_search")
+BAND_TRAIN_DIR = os.path.join(REPO, "build", "smoke_train_band")
+KERNELS = ("gather_matmul", "row_gather", "nn_search", "band_conv")
 N_SCANS = 8
+# the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
+# bf16 tensor-core FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BPS = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 N_POINTS = 100000
 SEED = 0
 # |kernel - plain| <= REL * sum_k,c |g w| + ABS: both sides add the same
@@ -75,6 +98,12 @@ KERNEL_ABS_TOL = 1e-6
 # and the d_W sum to bf16 after f32 sums in other orders, so an entry
 # may land one bf16 ulp apart: |err| <= 2^-8 * sum|terms| + ABS
 BWD_REL_TOL = {"bf16": 2.0 ** -8, "f32": KERNEL_REL_TOL}
+# the band engine's backward in bf16: for a submanifold plan B4 rounds the
+# cotangent before its exact products, where autograd through the plain
+# conv rounds each tap's d_features partial and the in-window d_W (the
+# kernel's d_W is not rounded); each side is within bf16's unit roundoff
+# 2^-8 of the exact sum of the same terms, so |err| <= 2^-7 * sum|terms|
+BAND_BWD_REL_TOL = {"bf16": 2.0 ** -7, "f32": KERNEL_REL_TOL}
 # streaming vs two-frame: the same kernels on the same inputs
 POSE_TOL = dict(rtol=1e-5, atol=1e-5)
 # card (kernel, cuDNN f32 without TF32) vs CPU (plain versions), f32:
@@ -97,6 +126,10 @@ TRAIN_GRAD_FACTOR = 10.0
 TRAIN_GRAD_ABS = 3e-3
 TRAIN_STEPS = 4
 SMOKE_WARMUP_STEPS = 1  # steps 0 and 1 warm up, 2 and 3 do not
+# the overflow audit: a plan's overflow count may use at most this share
+# of its capacity (tests/test_band_conv.py's deployed-shape guard)
+OVERFLOW_SHARE = 0.5
+AUDIT_POINTS = 131072   # that guard's frame: PipelineCfg().data.max_points
 
 
 def fail(msg):
@@ -237,11 +270,45 @@ def event_us(fn, n, torch):
 def plain_vs_kernel_us(plain, kern, n, torch):
     """Mean µs per call of each, timed in the order plain, kernel,
     kernel, plain."""
-    us = {"plain": [], "kernel": []}
-    for name, fn in (("plain", plain), ("kernel", kern), ("kernel", kern),
-                     ("plain", plain)):
-        us[name].append(event_us(fn, n, torch))
-    return statistics.mean(us["kernel"]), statistics.mean(us["plain"])
+    us = turns_us([("plain", plain), ("kernel", kern)], n, torch)
+    return us["kernel"], us["plain"]
+
+
+def turns_us(named, n, torch):
+    """Mean µs per call of each (name, fn), timed in turns: the list in
+    order, then in reverse."""
+    us = {}
+    for name, fn in named + named[::-1]:
+        us.setdefault(name, []).append(event_us(fn, n, torch))
+    return {name: statistics.mean(v) for name, v in us.items()}
+
+
+def profile_pushes(stream, scans, torch):
+    """``torch.profiler`` over one push per scan: device ms and device
+    ops per push, and the device ops with the most device time (the
+    profiler's own host cost makes its wall time no measure of a push).
+    Returns None when the trace holds no device events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for scan in scans:
+            stream.push(scan)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not ops:
+        return None
+    by_name = {}
+    for e in ops:
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    device_ms = sum(us for us, _ in by_name.values()) / 1e3 / len(scans)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
+    return dict(device_ms=device_ms,
+                ops=len(ops) / len(scans),
+                top=[(name[:60], us / 1e3 / len(scans), n / len(scans))
+                     for name, (us, n) in top])
 
 
 def train_batches(vcfg_points, seq_length, n_windows, seed, np):
@@ -270,19 +337,29 @@ def train_batches(vcfg_points, seq_length, n_windows, seed, np):
     return out
 
 
-def predicted_launches(net, cfg, warmup):
-    """Kernel launches of one train step: every sparse conv of every
-    frame runs ``gather_matmul`` once forward and ``row_gather`` once
-    for its d_W; every conv but the first (whose input needs no
-    gradient) runs ``gather_matmul_dgrad`` once; each ICP round runs one
-    ``nn_search`` for all pairs."""
-    n_conv = len(net.middle._convs)
+def predicted_launches(ops, cfg, warmup):
+    """Kernel launches of one train step, from the ops of one frame's
+    convs: a conv through a raw rulebook runs ``gather_matmul`` forward
+    and ``row_gather`` for its d_W; a band plan runs ``band_matmul``
+    forward, and for its d_W ``band_gather`` if it is a self-transpose
+    (submanifold) plan, else ``row_gather``.  Every conv but the first
+    (whose input needs no gradient) runs one d_features kernel:
+    ``band_matmul_dgrad`` for a self-transpose plan, else
+    ``gather_matmul_dgrad``.  Each frame of the window repeats that;
+    each ICP round runs one ``nn_search`` for all pairs."""
+    want = dict.fromkeys(("gather_matmul", "gather_matmul_dgrad",
+                          "row_gather", "band_matmul", "band_matmul_dgrad",
+                          "band_gather"), 0)
     L = cfg.data.seq_length
-    return {"gather_matmul": n_conv * L,
-            "gather_matmul_dgrad": (n_conv - 1) * L,
-            "row_gather": n_conv * L,
-            "nn_search": (cfg.loss.warmup_icp_iter if warmup
-                          else cfg.loss.icp_iter)}
+    for i, op in enumerate(ops):
+        st = op.plan is not None and op.plan.self_transpose
+        want["gather_matmul" if op.plan is None else "band_matmul"] += L
+        want["band_gather" if st else "row_gather"] += L
+        if i > 0:
+            want["band_matmul_dgrad" if st else "gather_matmul_dgrad"] += L
+    want["nn_search"] = (cfg.loss.warmup_icp_iter if warmup
+                         else cfg.loss.icp_iter)
+    return want
 
 
 def check_nn_search(torch, nn_search, nn_search_plain, src, sm, tgt, tm):
@@ -298,29 +375,34 @@ def check_nn_search(torch, nn_search, nn_search_plain, src, sm, tgt, tm):
     return d, i
 
 
-def check_backward(calls, torch, sparse_conv, sparse_conv_apply,
-                   sparse_conv_dgrad, dt_name):
-    """The autograd conv (kernels) against torch autograd through the
-    plain conv, for d_features, d_W and d_bias; returns the largest
-    |error|."""
+def band_apply_plain(bc, torch, f, plan, w, b, om, dt):
+    """``band_conv_apply`` with B4's plain version in place of the
+    kernel: the reference the band kernels are held to, forward and
+    (through torch autograd) backward."""
+    f_pad = bc.pad_rows(f, plan.v_in)
+    out = bc.band_conv_plain(f_pad, w, plan.base, plan.sel, dt)
+    out = bc.overflow_add_out(out, f_pad, w, plan)[:plan.v_out] + b
+    return torch.where(om[:, None], out, 0.0)
+
+
+def check_backward(calls, torch, conv_kernel, conv_plain, sparse_conv_dgrad,
+                   dt_name, rel):
+    """The autograd conv ``conv_kernel(f, op, w, b, mask, dtype)``
+    (kernels) against torch autograd through ``conv_plain`` (the plain
+    conv), for d_features, d_W (|err| <= rel * sum|terms| + ABS) and
+    d_bias; returns the largest d_features |error|."""
     dt = {"bf16": torch.bfloat16, "f32": torch.float32}[dt_name]
-    rel = BWD_REL_TOL[dt_name]
     gen = torch.Generator(device=calls[0][0].device).manual_seed(SEED)
     worst = 0.0
     for n, (f, op, w, b, om) in enumerate(calls):
         V, K = op.rb.idx.shape
         ct = torch.randn(V, w.shape[2], device=f.device, generator=gen)
         grads = []
-        for use_kernel in (True, False):
+        for conv in (conv_kernel, conv_plain):
             fi = f.clone().requires_grad_(n > 0)
             wi = w.clone().requires_grad_()
             bi = b.clone().requires_grad_()
-            if use_kernel:
-                out = sparse_conv(fi, op.rb, op.rb_t, wi, bi, om, dt,
-                                  op.flip_taps)
-            else:
-                out = sparse_conv_apply(fi, op.rb, wi, bi, om, dt)
-            out.backward(ct)
+            conv(fi, op, wi, bi, om, dt).backward(ct)
             grads.append((fi.grad, wi.grad, bi.grad))
         (kf, kw, kb), (pf, pw, pb) = grads
         ctm = torch.where(om[:, None], ct, 0.0).abs()
@@ -343,11 +425,133 @@ def check_backward(calls, torch, sparse_conv, sparse_conv_apply,
                 fail(f"backward {what} of conv {n} ({dt_name}) != autograd "
                      f"through the plain conv: max |err| "
                      f"{err.max().item():.3e}")
-            worst = max(worst, err.max().item())
+            if what == "d_features":
+                worst = max(worst, err.max().item())
             line.append(f"{what} {err.max().item():.2e}")
         say(f"  conv {n:2d} V={V:5d} K={K:2d} {dt_name:4s} max |err|: "
             f"{', '.join(line)}")
     return worst
+
+
+def bound_ms(n_bytes, flops=0.0, dtype="bf16"):
+    """The least time the card could take: the larger of the bytes over
+    HBM's rate and the operations over the peak rate of their type.
+    Returns (ms, "bytes" or "operations")."""
+    t_bytes = n_bytes / HBM_BPS
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def band_pairs(plan):
+    """Number of in-window (row, tap) pairs of a plan."""
+    return int((plan.sel >= 0).sum())
+
+
+def bits(x, torch):
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def check_band_kernels(cases, bc, torch):
+    """B4 against its plain version (|err| <= REL * sum|g*w| + ABS) and
+    B5 bit-equal to its plain version, in bf16 and f32, for each
+    (label, f_pad, w, plan); returns the largest B4 |error|."""
+    worst = 0.0
+    for label, f_pad, w, plan in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            out = bc.band_matmul(f_pad, w, plan.base, plan.sel, dt)
+            ref = bc.band_conv_plain(f_pad, w, plan.base, plan.sel, dt)
+            mag = bc.band_conv_plain(f_pad.abs(), w.abs(), plan.base,
+                                     plan.sel, dt)
+            g = bc.band_gather(f_pad, plan.base, plan.sel, dt)
+            g_ref = bc.band_gather_plain(f_pad, plan.base, plan.sel, dt)
+            torch.cuda.synchronize()
+            err = (out - ref).abs()
+            max_abs = err.max().item()
+            nB, K, B = plan.sel.shape
+            say(f"  {label} nB={nB:3d} K={K:2d} B={B} W={plan.window:4d} "
+                f"Cin={f_pad.shape[1]:2d} Cout={w.shape[2]:2d} "
+                f"{str(dt)[6:]:8s} B4 max_abs={max_abs:.3e}, B5 bit-equal")
+            if ((err > KERNEL_REL_TOL * mag + KERNEL_ABS_TOL).any() or
+                    not torch.isfinite(out).all()):
+                fail(f"band_matmul disagrees with band_conv_plain at {label} "
+                     f"({dt}): max_abs {max_abs}")
+            if g.dtype != g_ref.dtype or not torch.equal(bits(g, torch),
+                                                         bits(g_ref, torch)):
+                fail(f"band_gather != band_gather_plain at {label} ({dt})")
+            worst = max(worst, max_abs)
+    return worst
+
+
+def band_edge_cases(rb_call, plan, bc, sc, torch):
+    """(label, f_pad, w, plan) edge cases at the L0 subm conv: an
+    overflow-heavy tiny-window plan, all-invalid sel, a ragged V, and
+    NaN rows that only sel = -1 would point at.  Also holds the whole
+    overflow-heavy conv (B4 + the f32 overflow epilogue) against the
+    rulebook conv in f32."""
+    f, rb, w, b, om = rb_call
+    V = rb.idx.shape[0]
+    n_valid = int(rb.valid.sum())
+    tiny = bc.build_band_index(rb, V, window=16, ov_capacity=n_valid,
+                               self_transpose=True)
+    if bool(bc.overflow_saturated(tiny)):
+        fail("the tiny-window plan saturated its overflow capacity")
+    full = bc.band_conv_apply(f, tiny, w, b, om, torch.float32)
+    ref = sc.sparse_conv_apply(f, rb, w, b, om, torch.float32)
+    mag = sc.sparse_conv_apply(f.abs(), rb, w.abs(), None, None,
+                               torch.float32)
+    torch.cuda.synchronize()
+    err = (full - ref).abs()
+    say(f"  overflow-heavy plan (W=16): {int(tiny.ov_count)} of {n_valid} "
+        f"pairs overflow; whole conv vs rulebook conv, f32: max |err| "
+        f"{err.max().item():.3e}")
+    if (err > KERNEL_REL_TOL * mag + KERNEL_ABS_TOL).any():
+        fail("the overflow-heavy band conv != the rulebook conv in f32")
+    f_pad = bc.pad_rows(f, plan.v_in)
+    none = plan._replace(sel=torch.full_like(plan.sel, -1))
+    out = bc.band_matmul(f_pad, w, none.base, none.sel)
+    g = bc.band_gather(f_pad, none.base, none.sel)
+    torch.cuda.synchronize()
+    if out.abs().max().item() != 0 or g.float().abs().max().item() != 0:
+        fail("all-invalid sel must give zeros")
+    ragged_rb = type(rb)(rb.idx[:V - 37].contiguous(),
+                         rb.valid[:V - 37].contiguous())
+    ragged = bc.build_band_index(ragged_rb, V, self_transpose=True)
+    used = torch.zeros(f_pad.shape[0], dtype=torch.bool, device=f.device)
+    src = (ragged.base[:, :, None] + ragged.sel)[ragged.sel >= 0]
+    used[src.long()] = True
+    f_nan = torch.where(used[:, None], f_pad, float("nan"))
+    say(f"  edge cases: all-invalid sel gives zeros; ragged V={V - 37}; "
+        f"{int((~used).sum())} NaN rows that only sel = -1 would reach")
+    return [("tiny window", f_pad, w, tiny),
+            ("ragged V, NaN rows", f_nan, w, ragged)]
+
+
+def overflow_audit(label, geo, band_overflow_counts, share=None):
+    """Print every plan's overflow count against its capacity; fail above
+    ``share`` of the capacity when a share is given.  Returns the names
+    of the saturated plans (count above capacity: pairs were dropped and
+    the conv is inexact)."""
+    counts = band_overflow_counts(geo)
+    if len(counts) != 10:
+        fail(f"expected 10 band plans, got {len(counts)}")
+    line, saturated = [], []
+    for name, (cnt, cap) in counts.items():
+        c = int(cnt)
+        line.append(f"{name} {c}")
+        if c > cap:
+            saturated.append(name)
+        if share is not None and c > cap * share:
+            fail(f"band plan {name} of {label}: {c} overflow pairs vs "
+                 f"capacity {cap}: the windows no longer cover the geometry")
+    say(f"[band] overflow audit, {label} (pairs, capacity "
+        f"{counts['sub0'][1]}): {', '.join(line)}"
+        f"{'; SATURATED: ' + ', '.join(saturated) if saturated else ''}")
+    return saturated
 
 
 def main():
@@ -356,12 +560,15 @@ def main():
 
     smi_line = require_card(torch)
     sys.path.insert(0, REPO)
-    from rslo_tpu.config.schema import PipelineCfg
+    from rslo_tpu_torch.config.schema import PipelineCfg
     from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
     from rslo_tpu_torch.eval.streaming import StreamingOdometry
     from rslo_tpu_torch.geometry import np_compose_pose
+    from rslo_tpu_torch.models.middle import band_overflow_counts
     from rslo_tpu_torch.models.net import OdomNet
     from rslo_tpu_torch.ops import _build, chamfer, dma_gather
+    from rslo_tpu_torch.ops import band_conv as bc
+    from rslo_tpu_torch.ops import sparse_conv as sc
     from rslo_tpu_torch.ops.chamfer import nn_search, nn_search_plain
     from rslo_tpu_torch.ops.dma_gather import (gather_matmul,
                                                gather_matmul_dgrad,
@@ -375,7 +582,10 @@ def main():
     dev = torch.device("cuda", 0)
     counted = {"gather_matmul": gather_matmul,
                "gather_matmul_dgrad": gather_matmul_dgrad,
-               "row_gather": row_gather, "nn_search": nn_search}
+               "row_gather": row_gather, "nn_search": nn_search,
+               "band_matmul": bc.band_matmul,
+               "band_matmul_dgrad": bc.band_matmul_dgrad,
+               "band_gather": bc.band_gather}
 
     def reset_counts():
         for fn in counted.values():
@@ -398,16 +608,19 @@ def main():
                                n_points=N_POINTS)
     vcfg = voxelizer_config(cfg)
 
-    def encode(scan):
+    def scan_example(scan):
         pts = torch.as_tensor(scan, device=dev)
-        ex = prepare_example(pts[None], torch.ones(1, len(scan), dtype=bool,
-                                                   device=dev),
-                             vcfg, mean_mode=True)
-        return net.frame_features(ex["voxel_features"][0], ex["coords"][0],
-                                  ex["voxel_mask"][0])
+        return prepare_example(pts[None], torch.ones(1, len(scan), dtype=bool,
+                                                     device=dev),
+                               vcfg, mean_mode=True)
+
+    def encode(model, scan):
+        ex = scan_example(scan)
+        return model.frame_features(ex["voxel_features"][0],
+                                    ex["coords"][0], ex["voxel_mask"][0])
 
     with torch.no_grad():
-        calls = capture_conv_calls(net, lambda: encode(frames[0]))
+        calls = capture_conv_calls(net, lambda: encode(net, frames[0]))
         if len(calls) != 20:
             fail(f"expected 20 sparse convs per frame, saw {len(calls)}")
         calls = [(f, op.rb, w, b, om) for f, op, w, b, om in calls]
@@ -423,20 +636,6 @@ def main():
             torch))
 
     # -- 4. the serving path: streaming -------------------------------------
-    stream = StreamingOdometry(net, cfg, dev)
-    reset_counts()
-    for scan in frames:
-        stream.push(scan)
-    torch.cuda.synchronize()
-    launches = gather_matmul.launches
-    poses = np.stack(stream.trajectory)
-    say(f"[stream] {N_SCANS} scans, {launches} gather_matmul launches; "
-        f"last pose {np.array2string(poses[-1], precision=5)}")
-    if launches != 20 * N_SCANS:
-        fail(f"expected {20 * N_SCANS} kernel launches, saw {launches}")
-    if poses.shape != (N_SCANS, 7) or not np.isfinite(poses).all():
-        fail(f"bad trajectory {poses.shape}: {poses}")
-
     def two_frame(model, device):
         pts = torch.as_tensor(np.stack(frames[:2]), device=device)
         ex = prepare_example(pts, torch.ones(pts.shape[:2], dtype=bool,
@@ -445,23 +644,54 @@ def main():
         with torch.no_grad():
             return model(ex)
 
-    two = two_frame(net, dev)["odometry"][0].cpu().numpy()
-    expect = np_compose_pose(poses[0][None], two[None])[0]
-    say(f"[stream] pose after scan 2 {np.array2string(poses[1], precision=6)}"
-        f" vs two-frame forward {np.array2string(expect, precision=6)}; "
-        f"max |diff| {np.abs(poses[1] - expect).max():.3e}")
-    if not np.allclose(poses[1], expect, **POSE_TOL):
-        fail("streaming pose after scan 2 != two-frame forward")
+    def stream_and_check(label, model, cfg_, kernel):
+        """Stream the scans, the counts set to 0 just before: exactly 20
+        launches of ``kernel`` per scan and none of any other, finite
+        poses, and the pose after scan 2 equal to the two-frame
+        forward."""
+        stream = StreamingOdometry(model, cfg_, dev)
+        reset_counts()
+        for scan in frames:
+            stream.push(scan)
+        torch.cuda.synchronize()
+        got = counts()
+        poses = np.stack(stream.trajectory)
+        say(f"[{label}] {N_SCANS} scans, launches {got}; last pose "
+            f"{np.array2string(poses[-1], precision=5)}")
+        want = dict.fromkeys(counted, 0)
+        want[kernel] = 20 * N_SCANS
+        if got != want:
+            fail(f"{label}: launches {got} != {want}")
+        if poses.shape != (N_SCANS, 7) or not np.isfinite(poses).all():
+            fail(f"{label}: bad trajectory {poses.shape}: {poses}")
+        two = two_frame(model, dev)["odometry"][0].cpu().numpy()
+        expect = np_compose_pose(poses[0][None], two[None])[0]
+        say(f"[{label}] pose after scan 2 "
+            f"{np.array2string(poses[1], precision=6)} vs two-frame forward "
+            f"{np.array2string(expect, precision=6)}; max |diff| "
+            f"{np.abs(poses[1] - expect).max():.3e}")
+        if not np.allclose(poses[1], expect, **POSE_TOL):
+            fail(f"{label}: pose after scan 2 != two-frame forward")
+
+    def time_serving(model, cfg_):
+        """(ms/scan streaming, median of 20 after 3 warm-up scans; ms of
+        the two-frame forward, median of 10)."""
+        stream = StreamingOdometry(model, cfg_, dev)
+        for scan in frames[:3]:
+            stream.push(scan)
+        it = iter(frames * 3)
+        return (median_ms(lambda: stream.push(next(it)), 20, torch),
+                median_ms(lambda: two_frame(model, dev), 10, torch))
+
+    stream_and_check("stream", net, cfg, "gather_matmul")
 
     # -- 5. timing of the serving path -------------------------------------
-    stream = StreamingOdometry(net, cfg, dev)
-    for scan in frames[:3]:                   # warm-up
-        stream.push(scan)
-    it = iter(frames * 3)
-    stream_ms = median_ms(lambda: stream.push(next(it)), 20, torch)
-    two_ms = median_ms(lambda: two_frame(net, dev), 10, torch)
+    stream_ms, two_ms = time_serving(net, cfg)
     f, rb, w, b, om = calls[1]                # L0 subm, 16 -> 16
     V, K = rb.idx.shape
+    gm_bound = bound_ms(
+        nbytes(f, rb.idx, rb.valid, w, b, om) + V * w.shape[2] * 4,
+        2.0 * int(rb.valid.sum()) * f.shape[1] * w.shape[2])
     with torch.no_grad():
         k_us, p_us = plain_vs_kernel_us(
             lambda: sparse_conv_apply(f, rb, w, b, om, torch.bfloat16),
@@ -473,11 +703,120 @@ def main():
     say(f"[time] L0 subm conv V={V} K={K} Cin={f.shape[1]} "
         f"Cout={w.shape[2]} bf16: gather_matmul {k_us:.2f} us/call, plain "
         f"sparse_conv_apply {p_us:.2f} us/call (plain, kernel, kernel, "
-        f"plain; 50 calls each)")
+        f"plain; 50 calls each); bound {gm_bound[0] * 1e3:.2f} us "
+        f"({gm_bound[1]})")
     kernel_rows = {"gather_matmul": dict(
         source="rslo_tpu_torch/csrc/gather_matmul.cu",
         replaces="rslo_tpu/ops/dma_gather.py:132", max_abs_err=worst,
-        ms=k_us / 1e3, plain_ms=p_us / 1e3)}
+        ms=k_us / 1e3, plain_ms=p_us / 1e3, bound=gm_bound,
+        library_ms=None)}
+
+    # -- 6. the band engine, serving ----------------------------------------
+    bcfg = cfg.replace(middle=dataclasses.replace(cfg.middle, engine="band"))
+    bnet = OdomNet(bcfg)
+    bnet.load_state_dict(net.state_dict())
+    bnet = bnet.to(dev).eval()
+    m = bcfg.middle
+    say(f"[band] engine band: block {m.band_block}, windows "
+        f"{tuple(m.band_windows)}, min_channels {m.band_min_channels}; the "
+        f"rulebook net's weights")
+    with torch.no_grad():
+        # the JAX package's deployed-shape guard: a frame of
+        # max_points points, every plan at most half full
+        deployed, _ = synth_sequence(seed=SEED, n_frames=1,
+                                     n_points=AUDIT_POINTS)
+        ex0 = scan_example(deployed[0])
+        overflow_audit(f"deployed-shape frame of {AUDIT_POINTS} points",
+                       bnet._middle_geometry(ex0["coords"][0],
+                                             ex0["voxel_mask"][0]),
+                       band_overflow_counts, OVERFLOW_SHARE)
+        # the streamed scans: reported; the scans that the exactness
+        # checks below compare (0 and 1) must not be saturated
+        for t, scan in enumerate(frames):
+            ex_t = scan_example(scan)
+            sat = overflow_audit(f"scan {t}", bnet._middle_geometry(
+                ex_t["coords"][0], ex_t["voxel_mask"][0]),
+                band_overflow_counts)
+            if sat and t < 2:
+                fail(f"scan {t} saturates band plans {sat}")
+        bcalls = capture_conv_calls(bnet, lambda: encode(bnet, frames[0]))
+        if len(bcalls) != 20 or any(op.plan is None for _, op, *_ in bcalls):
+            fail("the band frame did not run 20 convs through band plans")
+        say(f"[band] frame 0: B4 vs plain, |err| <= {KERNEL_REL_TOL:g} * "
+            f"sum|g*w| + {KERNEL_ABS_TOL:g}; B5 bit-equal to plain")
+        b4_worst = check_band_kernels(
+            [(f"conv {i:2d}", bc.pad_rows(f_, op.plan.v_in), w_, op.plan)
+             for i, (f_, op, w_, _, _) in enumerate(bcalls)], bc, torch)
+        say("[band] edge cases")
+        b4_worst = max(b4_worst, check_band_kernels(
+            band_edge_cases(calls[1], bcalls[1][1].plan, bc, sc, torch), bc,
+            torch))
+
+    stream_and_check("band stream", bnet, bcfg, "band_matmul")
+    band_stream_ms, band_two_ms = time_serving(bnet, bcfg)
+    f1, op1, w1, _, _ = bcalls[1]             # L0 subm, 16 -> 16
+    plan1 = op1.plan
+    fp1 = bc.pad_rows(f1, plan1.v_in)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        us = turns_us([
+            ("B4 plain", lambda: bc.band_conv_plain(fp1, w1, plan1.base,
+                                                    plan1.sel, bf16)),
+            ("B4", lambda: bc.band_matmul(fp1, w1, plan1.base, plan1.sel,
+                                          bf16)),
+            ("B1", lambda: gather_matmul(f, rb.idx, rb.valid, w, b, om,
+                                         bf16)),
+            ("B5 plain", lambda: bc.band_gather_plain(fp1, plan1.base,
+                                                      plan1.sel, bf16)),
+            ("B5", lambda: bc.band_gather(fp1, plan1.base, plan1.sel,
+                                          bf16))], 50, torch)
+    nB, K1, B1 = plan1.sel.shape
+    cin1, cout1 = w1.shape[1], w1.shape[2]
+    b4_bound = bound_ms(nbytes(fp1, plan1.base, plan1.sel, w1) +
+                        nB * B1 * cout1 * 4,
+                        2.0 * band_pairs(plan1) * cin1 * cout1)
+    b5_bound = bound_ms(nbytes(fp1, plan1.base, plan1.sel) +
+                        nB * B1 * K1 * cin1 * 2)
+    say(f"[time] band streaming {band_stream_ms:.3f} ms/scan "
+        f"({1e3 / band_stream_ms:.2f} scans/s), median of 20 after warm-up")
+    say(f"[time] band two-frame forward {band_two_ms:.3f} ms, median of 10")
+    say(f"[time] L0 subm conv, band plan nB={nB} K={K1} B={B1} "
+        f"W={plan1.window} Cin={cin1} Cout={cout1} bf16 "
+        f"({band_pairs(plan1)} in-window pairs): band_matmul {us['B4']:.2f} "
+        f"us/call, plain band_conv_plain {us['B4 plain']:.2f} us/call, "
+        f"gather_matmul (B1) at the same conv {us['B1']:.2f} us/call; "
+        f"band_gather {us['B5']:.2f} us/call, plain band_gather_plain "
+        f"{us['B5 plain']:.2f} us/call (each in turns, 50 calls a turn); "
+        f"bounds B4 {b4_bound[0] * 1e3:.2f} us ({b4_bound[1]}), B5 "
+        f"{b5_bound[0] * 1e3:.2f} us ({b5_bound[1]})")
+    for engine, model, cfg_, wall_ms in (("rulebook", net, cfg, stream_ms),
+                                         ("band", bnet, bcfg,
+                                          band_stream_ms)):
+        st = StreamingOdometry(model, cfg_, dev)
+        for scan in frames[:3]:               # warm-up
+            st.push(scan)
+        prof = profile_pushes(st, frames[3:7], torch)
+        if prof is None:
+            say(f"[profile] {engine} streaming: the trace holds no device "
+                f"events")
+            continue
+        say(f"[profile] {engine} streaming, torch.profiler over 4 pushes: "
+            f"{prof['device_ms']:.3f} ms/scan of device work in "
+            f"{prof['ops']:.0f} device ops; against the {wall_ms:.3f} "
+            f"ms/scan measured above, the device idles "
+            f"{1 - prof['device_ms'] / wall_ms:.1%}")
+        for name, ms, n in prof["top"]:
+            say(f"  {ms:8.3f} ms/scan  {n:6.1f} ops/scan  {name}")
+    kernel_rows["band_matmul"] = dict(
+        source="rslo_tpu_torch/csrc/band_conv.cu",
+        replaces="rslo_tpu/ops/band_conv.py:222", max_abs_err=b4_worst,
+        ms=us["B4"] / 1e3, plain_ms=us["B4 plain"] / 1e3, bound=b4_bound,
+        library_ms=None)
+    kernel_rows["band_gather"] = dict(
+        source="rslo_tpu_torch/csrc/band_conv.cu",
+        replaces="rslo_tpu/ops/band_conv.py:282", max_abs_err=0.0,
+        ms=us["B5"] / 1e3, plain_ms=us["B5 plain"] / 1e3, bound=b5_bound,
+        library_ms=None)
 
     # -- the train path's config, model and data ----------------------------
     with open(TRAIN_CONFIG) as fh:
@@ -508,7 +847,7 @@ def main():
         f"{tcfg.data.max_points}: {int(ex['voxel_mask'][0].sum())} voxels "
         f"in frame 0, loss points {tuple(src.shape[:2])} (stride {stride})")
 
-    # -- 6. B3 nn_search bit-equal to its plain version ---------------------
+    # -- 7. B3 nn_search bit-equal to its plain version ---------------------
     d, _ = check_nn_search(torch, nn_search, nn_search_plain, src, sm, tgt,
                            tm)
     say(f"[nn_search] P={src.shape[0]} N={src.shape[1]} M={tgt.shape[1]}: "
@@ -540,7 +879,7 @@ def main():
     if ((i >= half) & (i < 2 * half)).any():
         fail("nn_search: a tie must go to the lowest index")
 
-    # -- 7. B2 row_gather bit-equal to features[idx] ------------------------
+    # -- 8. B2 row_gather bit-equal to features[idx] ------------------------
     tnet = OdomNet(tcfg, torch.Generator().manual_seed(SEED)).to(dev)
     tnet.train()
     train_calls = capture_conv_calls(tnet, lambda: tnet.frame_features(
@@ -565,94 +904,161 @@ def main():
     say(f"[row_gather] L0 im2col {tuple(got.shape)}: bit-equal to "
         f"features[idx]; out-of-range indices raise")
 
-    # -- 8. the sparse conv's backward against autograd ----------------------
+    # -- 9. the sparse conv's backward against autograd ----------------------
+    btcfg = tcfg.replace(middle=dataclasses.replace(tcfg.middle,
+                                                    engine="band"))
+    tbnet = OdomNet(btcfg, torch.Generator().manual_seed(SEED)).to(dev)
+    tbnet.train()
+    with torch.no_grad():
+        # the train windows' frames: reported; window 0, which the
+        # band-vs-rulebook train step compares, must not be saturated
+        for w_i, batch in enumerate(batches):
+            ex_w = prepare_example(
+                torch.as_tensor(batch["points"], device=dev),
+                torch.as_tensor(batch["point_mask"], device=dev), tvcfg,
+                mean_mode=True)
+            for t in range(0 if w_i == 0 else L - 1, L):
+                sat = overflow_audit(
+                    f"train frame {w_i + t}", tbnet._middle_geometry(
+                        ex_w["coords"][t], ex_w["voxel_mask"][t]),
+                    band_overflow_counts)
+                if sat and w_i == 0:
+                    fail(f"train frame {t} saturates band plans {sat}")
+    band_train_calls = capture_conv_calls(tbnet, lambda: tbnet.frame_features(
+        ex["voxel_features"][0], ex["coords"][0], ex["voxel_mask"][0]))
+    if (len(band_train_calls) != 20 or
+            any(op.plan is None or op.rb_t is None
+                for _, op, *_ in band_train_calls)):
+        fail("the band train-mode frame did not run 20 differentiable band "
+             "convs")
+    engines = {
+        "rulebook": (BWD_REL_TOL, train_calls,
+                     lambda f_, op, w_, b_, om_, dt: sparse_conv(
+                         f_, op.rb, op.rb_t, w_, b_, om_, dt, op.flip_taps),
+                     lambda f_, op, w_, b_, om_, dt: sparse_conv_apply(
+                         f_, op.rb, w_, b_, om_, dt)),
+        "band": (BAND_BWD_REL_TOL, band_train_calls,
+                 lambda f_, op, w_, b_, om_, dt: bc.band_conv(
+                     f_, op.plan, w_, b_, om_, dt, op.rb, op.rb_t),
+                 lambda f_, op, w_, b_, om_, dt: band_apply_plain(
+                     bc, torch, f_, op.plan, w_, b_, om_, dt))}
     bwd_worst = {}
-    for dt_name in ("bf16", "f32"):
-        say(f"[backward] {dt_name}: |err| <= {BWD_REL_TOL[dt_name]:g} * "
-            f"sum|terms| + {KERNEL_ABS_TOL:g} (d_bias {KERNEL_REL_TOL:g})")
-        bwd_worst[dt_name] = check_backward(
-            train_calls, torch, sparse_conv, sparse_conv_apply,
-            sparse_conv_dgrad, dt_name)
+    for engine, (tol, eng_calls, conv_kernel, conv_plain) in engines.items():
+        for dt_name in ("bf16", "f32"):
+            say(f"[backward] {engine} {dt_name}: |err| <= "
+                f"{tol[dt_name]:g} * sum|terms| + {KERNEL_ABS_TOL:g} "
+                f"(d_bias {KERNEL_REL_TOL:g})")
+            bwd_worst[engine, dt_name] = check_backward(
+                eng_calls, torch, conv_kernel, conv_plain,
+                sparse_conv_dgrad, dt_name, tol[dt_name])
 
-    # -- 9. the train path: Trainer.fit --------------------------------------
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
-    trainer = Trainer(tcfg, TRAIN_DIR, dev)
-    state = trainer.init_state()
-    before = {k: v.detach().clone()
-              for k, v in state.model.state_dict().items()}
-    per_step = []
+    # -- 10. the train path: Trainer.fit, on each engine ---------------------
+    def fit_and_check(engine, cfg_, train_dir, ops):
+        """Trainer.fit for TRAIN_STEPS steps: launches per step against
+        the prediction, finite metrics, changed tensors, checkpoint
+        restore.  Returns (trainer, state, summed launches)."""
+        shutil.rmtree(train_dir, ignore_errors=True)
+        trainer = Trainer(cfg_, train_dir, dev)
+        state = trainer.init_state()
+        before = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+        per_step = []
 
-    def counted_batches():
-        for batch in batches:
-            reset_counts()
-            yield batch
-            per_step.append(counts())         # the step has been launched
+        def counted_batches():
+            for batch in batches:
+                reset_counts()
+                yield batch
+                per_step.append(counts())     # the step has been launched
 
-    reset_counts()
-    t0 = time.perf_counter()
-    state = trainer.fit(counted_batches(), state, max_steps=TRAIN_STEPS)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    train_launches = {k: sum(c[k] for c in per_step) for k in counted}
-    if state.step != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
-        fail(f"fit ran {state.step} steps, counted {len(per_step)}")
-    for k, c in enumerate(per_step):
-        warm = k <= tcfg.loss.warmup_steps
-        want = predicted_launches(state.model, tcfg, warm)
-        say(f"[train] step {k} ({'warmup' if warm else 'post-warmup'}): "
-            f"launches {c} (predicted {want})")
-        if c != want:
-            fail(f"step {k}: launches {c} != predicted {want}")
-    for step_i, row in trainer.history:
-        bad = [k for k, v in row.items() if not math.isfinite(v)]
-        say(f"[train] step {step_i}: loss {row['loss']:.5f} consistency "
-            f"{row['consistency_loss']:.5f} pyramid "
-            f"{row['pyramid_loss']:.5f} grad_norm {row['grad_norm']:.4f} "
-            f"alpha_rot {row['alpha_rot']:.6f} alpha_trans "
-            f"{row['alpha_trans']:.6f}")
-        if bad:
-            fail(f"step {step_i}: non-finite metrics {bad}")
-    if len(trainer.history) != TRAIN_STEPS:
-        fail(f"expected {TRAIN_STEPS} logged steps, got "
-             f"{len(trainer.history)}")
-    after = state.model.state_dict()
-    same = [k for k, v in before.items() if torch.equal(v, after[k])]
-    if same:
-        fail(f"train steps left {len(same)} tensors unchanged: {same[:5]}")
-    n_stats = sum(1 for k in after if k.endswith((".mean", ".var")))
-    say(f"[train] Trainer.fit: {TRAIN_STEPS} steps in {fit_s:.2f} s (first "
-        f"step included); all {len(after) - n_stats} parameters and "
-        f"{n_stats} running statistics changed")
-    restored = Trainer(tcfg, TRAIN_DIR, dev).init_state()
-    diff = [k for k, v in after.items()
-            if not torch.equal(v, restored.model.state_dict()[k])]
-    if (diff or restored.step != TRAIN_STEPS or
-            restored.opt_state.count != TRAIN_STEPS or
-            trainer.ckpt.latest_step() != TRAIN_STEPS):
-        fail(f"checkpoint restore mismatch: step {restored.step}, "
-             f"{len(diff)} tensors differ")
-    say(f"[train] checkpoint {trainer.ckpt.latest_step()} written and "
-        f"restored: step, optimizer count and all tensors equal")
+        t0 = time.perf_counter()
+        state = trainer.fit(counted_batches(), state, max_steps=TRAIN_STEPS)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        if state.step != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
+            fail(f"{engine}: fit ran {state.step} steps, counted "
+                 f"{len(per_step)}")
+        for k, c in enumerate(per_step):
+            warm = k <= cfg_.loss.warmup_steps
+            want = predicted_launches(ops, cfg_, warm)
+            say(f"[train {engine}] step {k} "
+                f"({'warmup' if warm else 'post-warmup'}): launches {c}")
+            if c != want:
+                fail(f"{engine} step {k}: launches {c} != predicted {want}")
+        for step_i, row in trainer.history:
+            bad = [k for k, v in row.items() if not math.isfinite(v)]
+            say(f"[train {engine}] step {step_i}: loss {row['loss']:.5f} "
+                f"consistency {row['consistency_loss']:.5f} pyramid "
+                f"{row['pyramid_loss']:.5f} grad_norm "
+                f"{row['grad_norm']:.4f} alpha_rot {row['alpha_rot']:.6f} "
+                f"alpha_trans {row['alpha_trans']:.6f}")
+            if bad:
+                fail(f"{engine} step {step_i}: non-finite metrics {bad}")
+        if len(trainer.history) != TRAIN_STEPS:
+            fail(f"{engine}: expected {TRAIN_STEPS} logged steps, got "
+                 f"{len(trainer.history)}")
+        after = state.model.state_dict()
+        same = [k for k, v in before.items() if torch.equal(v, after[k])]
+        if same:
+            fail(f"{engine}: train steps left {len(same)} tensors "
+                 f"unchanged: {same[:5]}")
+        n_stats = sum(1 for k in after if k.endswith((".mean", ".var")))
+        say(f"[train {engine}] Trainer.fit: {TRAIN_STEPS} steps in "
+            f"{fit_s:.2f} s (first step included); all "
+            f"{len(after) - n_stats} parameters and {n_stats} running "
+            f"statistics changed")
+        restored = Trainer(cfg_, train_dir, dev).init_state()
+        diff = [k for k, v in after.items()
+                if not torch.equal(v, restored.model.state_dict()[k])]
+        if (diff or restored.step != TRAIN_STEPS or
+                restored.opt_state.count != TRAIN_STEPS or
+                trainer.ckpt.latest_step() != TRAIN_STEPS):
+            fail(f"{engine}: checkpoint restore mismatch: step "
+                 f"{restored.step}, {len(diff)} tensors differ")
+        say(f"[train {engine}] checkpoint {trainer.ckpt.latest_step()} "
+            f"written and restored: step, optimizer count and all tensors "
+            f"equal")
+        return trainer, state, {k: sum(c[k] for c in per_step)
+                                for k in counted}
 
-    # -- 10. timing of the train path and the new kernels -------------------
-    opt = trainer.optimizer
-    step_ms = {}
-    torch.cuda.reset_peak_memory_stats(dev)
-    for warm in (True, False):
-        train_step(state, gpu_batch, tcfg, opt, warmup=warm)   # warm-up
-        step_ms[warm] = median_ms(lambda: train_step(
-            state, gpu_batch, tcfg, opt, warmup=warm), 5, torch)
-    peak_mib = torch.cuda.max_memory_allocated(dev) / 2 ** 20
-    say(f"[time] train step at kitti_train_ours full width, 3 frames: "
-        f"warmup {step_ms[True]:.3f} ms, post-warmup {step_ms[False]:.3f} "
-        f"ms (median of 5 after one warm-up step each); peak device memory "
-        f"{peak_mib:.1f} MiB")
+    rb_ops = [op for _, op, *_ in train_calls]
+    band_ops = [op for _, op, *_ in band_train_calls]
+    for engine, ops, cfg_ in (("rulebook", rb_ops, tcfg),
+                              ("band", band_ops, btcfg)):
+        for warm in (True, False):
+            say(f"[train {engine}] predicted launches per "
+                f"{'warmup' if warm else 'post-warmup'} step: "
+                f"{predicted_launches(ops, cfg_, warm)}")
+    trainer, state, train_launches = fit_and_check(
+        "rulebook", tcfg, TRAIN_DIR, rb_ops)
+    btrainer, bstate, band_train_launches = fit_and_check(
+        "band", btcfg, BAND_TRAIN_DIR, band_ops)
+
+    # -- 11. timing of the train path and the backward kernels ---------------
+    step_ms, peak_mib = {}, {}
+    for engine, tr, st, cfg_ in (("rulebook", trainer, state, tcfg),
+                                 ("band", btrainer, bstate, btcfg)):
+        torch.cuda.synchronize()
+        live_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+        torch.cuda.reset_peak_memory_stats(dev)
+        for warm in (True, False):
+            train_step(st, gpu_batch, cfg_, tr.optimizer,
+                       warmup=warm)                            # warm-up
+            step_ms[engine, warm] = median_ms(lambda: train_step(
+                st, gpu_batch, cfg_, tr.optimizer, warmup=warm), 5, torch)
+        peak_mib[engine] = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        say(f"[time] {engine} train step at kitti_train_ours full width, 3 "
+            f"frames: warmup {step_ms[engine, True]:.3f} ms, post-warmup "
+            f"{step_ms[engine, False]:.3f} ms (median of 5 after one "
+            f"warm-up step each); peak device memory "
+            f"{peak_mib[engine]:.1f} MiB, {peak_mib[engine] - live_mib:.1f} "
+            f"MiB above the {live_mib:.1f} MiB live before the steps")
     nn_k, nn_p = plain_vs_kernel_us(
         lambda: nn_search_plain(src, sm, tgt, tm),
         lambda: chamfer._launch(src, sm, tgt, tm), 10, torch)
-    rg_k, rg_p = plain_vs_kernel_us(
-        lambda: f0[idx0], lambda: dma_gather._launch_row_gather(f0, idx0),
-        50, torch)
+    rg = turns_us([
+        ("plain", lambda: f0[idx0]),
+        ("kernel", lambda: dma_gather._launch_row_gather(f0, idx0)),
+        ("library", lambda: torch.index_select(f0, 0, idx0))], 50, torch)
     ct0 = torch.randn(V0, f0.shape[1], device=dev)
     w_t = train_calls[1][2].to(torch.bfloat16).float().flip(0)
     w_t = w_t.transpose(1, 2).contiguous()
@@ -660,30 +1066,66 @@ def main():
         lambda: sparse_conv_dgrad(ct0, op0.rb_t, w_t, torch.bfloat16),
         lambda: gather_matmul_dgrad(ct0, op0.rb_t.idx, op0.rb_t.valid, w_t,
                                     torch.bfloat16), 50, torch)
+    bop0 = band_train_calls[1][1]                     # L0 subm band plan
+    bw_t = band_train_calls[1][2].flip(0).transpose(1, 2).contiguous()
+    ct_pad = bc.pad_rows(ct0, bop0.plan.v_in)
+    bd_k, bd_p = plain_vs_kernel_us(
+        lambda: bc.band_conv_plain(ct_pad, bw_t, bop0.plan.base,
+                                   bop0.plan.sel, torch.bfloat16),
+        lambda: bc.band_matmul_dgrad(ct_pad, bw_t, bop0.plan.base,
+                                     bop0.plan.sel, torch.bfloat16),
+        50, torch)
+    n_pairs = sum(int(sm[p].sum()) * int(tm[p].sum())
+                  for p in range(src.shape[0]))
+    nn_bound = bound_ms(nbytes(src, sm, tgt, tm) + src.shape[0] *
+                        src.shape[1] * 8, 9.0 * n_pairs, "f32")
+    rg_bound = bound_ms(nbytes(f0, idx0) + nbytes(got))
+    dg_bound = bound_ms(
+        nbytes(ct0, op0.rb_t.idx, op0.rb_t.valid, w_t) + nbytes(f0),
+        2.0 * int(op0.rb_t.valid.sum()) * w_t.shape[1] * w_t.shape[2])
+    bnB, _, bB = bop0.plan.sel.shape
+    bd_bound = bound_ms(
+        nbytes(ct_pad, bop0.plan.base, bop0.plan.sel, bw_t) +
+        bnB * bB * bw_t.shape[2] * 4,
+        2.0 * band_pairs(bop0.plan) * bw_t.shape[1] * bw_t.shape[2])
     say(f"[time] nn_search P={src.shape[0]} N={src.shape[1]} "
         f"M={tgt.shape[1]}: kernel {nn_k:.2f} us/call, plain {nn_p:.2f} "
-        f"us/call (plain, kernel, kernel, plain; 10 calls each)")
+        f"us/call (plain, kernel, kernel, plain; 10 calls each); bound "
+        f"{nn_bound[0] * 1e3:.2f} us ({nn_bound[1]}, {n_pairs} valid pairs)")
     say(f"[time] row_gather L0 im2col {tuple(got.shape)}: kernel "
-        f"{rg_k:.2f} us/call, plain features[idx] {rg_p:.2f} us/call "
-        f"(50 calls each)")
+        f"{rg['kernel']:.2f} us/call, plain features[idx] {rg['plain']:.2f} "
+        f"us/call, torch.index_select {rg['library']:.2f} us/call (in "
+        f"turns, 50 calls each); bound {rg_bound[0] * 1e3:.2f} us "
+        f"({rg_bound[1]})")
     say(f"[time] gather_matmul_dgrad L0 subm V={V0} Cout=16 -> Cin=16 "
         f"bf16: kernel {dg_k:.2f} us/call, plain sparse_conv_dgrad "
-        f"{dg_p:.2f} us/call (50 calls each)")
+        f"{dg_p:.2f} us/call (50 calls each); bound "
+        f"{dg_bound[0] * 1e3:.2f} us ({dg_bound[1]})")
+    say(f"[time] band_matmul_dgrad L0 subm plan, Cout=16 -> Cin=16 bf16: "
+        f"kernel {bd_k:.2f} us/call, plain band_conv_plain {bd_p:.2f} "
+        f"us/call (50 calls each); bound {bd_bound[0] * 1e3:.2f} us "
+        f"({bd_bound[1]})")
     kernel_rows["gather_matmul_dgrad"] = dict(
         source="rslo_tpu_torch/csrc/gather_matmul.cu",
         replaces="rslo_tpu/ops/dma_gather.py:132",
-        max_abs_err=max(bwd_worst.values()), ms=dg_k / 1e3,
-        plain_ms=dg_p / 1e3)
+        max_abs_err=max(bwd_worst["rulebook", d] for d in ("bf16", "f32")),
+        ms=dg_k / 1e3, plain_ms=dg_p / 1e3, bound=dg_bound, library_ms=None)
     kernel_rows["row_gather"] = dict(
         source="rslo_tpu_torch/csrc/row_gather.cu",
         replaces="rslo_tpu/ops/dma_gather.py:62", max_abs_err=0.0,
-        ms=rg_k / 1e3, plain_ms=rg_p / 1e3)
+        ms=rg["kernel"] / 1e3, plain_ms=rg["plain"] / 1e3, bound=rg_bound,
+        library_ms=rg["library"] / 1e3)
     kernel_rows["nn_search"] = dict(
         source="rslo_tpu_torch/csrc/nn_search.cu",
         replaces="rslo_tpu/ops/chamfer.py:109", max_abs_err=0.0,
-        ms=nn_k / 1e3, plain_ms=nn_p / 1e3)
+        ms=nn_k / 1e3, plain_ms=nn_p / 1e3, bound=nn_bound, library_ms=None)
+    kernel_rows["band_matmul_dgrad"] = dict(
+        source="rslo_tpu_torch/csrc/band_conv.cu",
+        replaces="rslo_tpu/ops/band_conv.py:222",
+        max_abs_err=max(bwd_worst["band", d] for d in ("bf16", "f32")),
+        ms=bd_k / 1e3, plain_ms=bd_p / 1e3, bound=bd_bound, library_ms=None)
 
-    # -- 11. card vs CPU, float32 two-frame forward --------------------------
+    # -- 12. card vs CPU, float32 two-frame forward; band vs rulebook ------
     cfg32 = cfg.replace(
         middle=dataclasses.replace(cfg.middle, conv_dtype="f32"),
         odom=dataclasses.replace(cfg.odom, compute_dtype="fp32"))
@@ -704,8 +1146,21 @@ def main():
             f"max |cpu| {scale:.3e}")
         if not err <= CPU_TOL * scale:
             fail(f"f32 two-frame {key} on the card != the CPU reference")
+    bcfg32 = cfg32.replace(middle=dataclasses.replace(cfg32.middle,
+                                                      engine="band"))
+    bnet32 = OdomNet(bcfg32)
+    bnet32.load_state_dict(cpu_state)
+    band_out = two_frame(bnet32.to(dev), dev)
+    for key in ("odometry", "tq_map", "t_conf", "q_conf"):
+        a, b = band_out[key].cpu().numpy(), gpu_out[key].cpu().numpy()
+        scale = np.abs(b).max()
+        err = np.abs(a - b).max() if a.shape == b.shape else np.inf
+        say(f"[band-ref] f32 two-frame {key}: band vs rulebook on the card "
+            f"max |diff| {err:.3e}, max |rulebook| {scale:.3e}")
+        if not err <= CPU_TOL * scale:
+            fail(f"f32 two-frame {key}: band engine != rulebook engine")
 
-    # -- 12. card vs CPU, one float32 train step -----------------------------
+    # -- 13. card vs CPU, one float32 train step; band vs rulebook --------
     tcfg32 = tcfg.replace(
         middle=dataclasses.replace(tcfg.middle, conv_dtype="f32"),
         odom=dataclasses.replace(tcfg.odom, compute_dtype="fp32"))
@@ -714,58 +1169,82 @@ def main():
     jittered = {k: v * (1 + TRAIN_GRAD_NOISE * torch.randn(
         v.shape, generator=noise_gen)) if v.is_floating_point() else v
         for k, v in weights.items()}
+    btcfg32 = tcfg32.replace(middle=dataclasses.replace(tcfg32.middle,
+                                                        engine="band"))
     outs = {}
-    for name, device, w in (("card", dev, weights),
-                            ("card, jittered weights", dev, jittered),
-                            ("cpu", torch.device("cpu"), weights)):
-        model = OdomNet(tcfg32).to(device)
+    for name, device, w, cfg_ in (
+            ("card", dev, weights, tcfg32),
+            ("card, jittered weights", dev, jittered, tcfg32),
+            ("card, band engine", dev, weights, btcfg32),
+            ("card, band engine, jittered weights", dev, jittered, btcfg32),
+            ("cpu", torch.device("cpu"), weights, tcfg32)):
+        model = OdomNet(cfg_).to(device)
         model.load_state_dict(w)
-        st = TrainState.create(model, make_optimizer(tcfg32, model),
+        st = TrainState.create(model, make_optimizer(cfg_, model),
                                {"rot": -2.5, "trans": 0.0})
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batches[0].items()}
         t0 = time.perf_counter()
-        out, grads = loss_and_grads(st, batch, tcfg32, warmup=False)
+        out, grads = loss_and_grads(st, batch, cfg_, warmup=False)
         outs[name] = ({k: float(v) for k, v in out.aux.items()},
                       {k: g.detach().cpu().double() for k, g in
                        grads.items()})
         say(f"[cpu-ref] f32 train step on the {name}: "
             f"{time.perf_counter() - t0:.2f} s")
-    (aux_g, g_g), (_, g_j), (aux_c, g_c) = outs.values()
-    for key, want in aux_c.items():
-        got = aux_g[key]
-        say(f"[cpu-ref] f32 train {key}: card {got:.7g} cpu {want:.7g}")
-        if not np.isclose(got, want, **TRAIN_LOSS_TOL):
-            fail(f"f32 train step {key} on the card != the CPU")
 
     def rel_err(a, b):
         return float((a - b).norm()) / float(b.norm())
-    top = max(float(g.norm()) for g in g_c.values())
-    leaves = [k for k, g in g_c.items() if float(g.norm()) >= 1e-6 * top]
-    err = {k: rel_err(g_g[k], g_c[k]) for k in leaves}
-    sens = {k: rel_err(g_j[k], g_g[k]) for k in leaves}
-    ratio = {k: err[k] / (TRAIN_GRAD_FACTOR * sens[k] + TRAIN_GRAD_ABS)
-             for k in leaves}
-    worst = max(ratio, key=ratio.get)
-    say(f"[cpu-ref] f32 train gradients, {len(leaves)} of {len(g_c)} "
-        f"leaves: card vs cpu relative L2 error median "
-        f"{statistics.median(err.values()):.3e}, max "
-        f"{max(err.values()):.3e}; card vs card with weights jittered by "
-        f"{TRAIN_GRAD_NOISE:g}: median {statistics.median(sens.values()):.3e},"
-        f" max {max(sens.values()):.3e}; tightest leaf {worst}: error "
-        f"{err[worst]:.3e}, sensitivity {sens[worst]:.3e}")
-    if ratio[worst] > 1.0:
-        fail(f"f32 train gradients on the card != the CPU: {worst} error "
-             f"{err[worst]:.3e} > {TRAIN_GRAD_FACTOR:g} * {sens[worst]:.3e}"
-             f" + {TRAIN_GRAD_ABS:g}")
+
+    def compare_steps(tag, what, got, ref, got_jittered):
+        """Loss terms to TRAIN_LOSS_TOL; each leaf's gradient to
+        TRAIN_GRAD_FACTOR x its measured sensitivity + TRAIN_GRAD_ABS."""
+        (aux_g, g_g), (aux_r, g_r), (_, g_j) = got, ref, got_jittered
+        for key, want in aux_r.items():
+            say(f"[{tag}] f32 train {key}: {what} {aux_g[key]:.7g} vs "
+                f"{want:.7g}")
+            if not np.isclose(aux_g[key], want, **TRAIN_LOSS_TOL):
+                fail(f"f32 train step {key}: {what} differ")
+        top = max(float(g.norm()) for g in g_r.values())
+        leaves = [k for k, g in g_r.items()
+                  if float(g.norm()) >= 1e-6 * top]
+        err = {k: rel_err(g_g[k], g_r[k]) for k in leaves}
+        sens = {k: rel_err(g_j[k], g_g[k]) for k in leaves}
+        ratio = {k: err[k] / (TRAIN_GRAD_FACTOR * sens[k] + TRAIN_GRAD_ABS)
+                 for k in leaves}
+        worst = max(ratio, key=ratio.get)
+        say(f"[{tag}] f32 train gradients, {len(leaves)} of {len(g_r)} "
+            f"leaves: {what} relative L2 error median "
+            f"{statistics.median(err.values()):.3e}, max "
+            f"{max(err.values()):.3e}; sensitivity to weights jittered by "
+            f"{TRAIN_GRAD_NOISE:g}: median "
+            f"{statistics.median(sens.values()):.3e}, max "
+            f"{max(sens.values()):.3e}; tightest leaf {worst}: error "
+            f"{err[worst]:.3e}, sensitivity {sens[worst]:.3e}")
+        if ratio[worst] > 1.0:
+            fail(f"f32 train gradients, {what}: {worst} error "
+                 f"{err[worst]:.3e} > {TRAIN_GRAD_FACTOR:g} * "
+                 f"{sens[worst]:.3e} + {TRAIN_GRAD_ABS:g}")
+
+    compare_steps("cpu-ref", "card vs cpu", outs["card"], outs["cpu"],
+                  outs["card, jittered weights"])
+    compare_steps("band-ref", "band vs rulebook engine on the card",
+                  outs["card, band engine"], outs["card"],
+                  outs["card, band engine, jittered weights"])
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    shutil.rmtree(BAND_TRAIN_DIR, ignore_errors=True)
 
     say(smi_line)
-    say(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", **{k: row[k] for k in (
-            "source", "replaces")}, "launches": train_launches[name],
-         **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms")}}
-        for name, row in kernel_rows.items()]}))
+    rows = []
+    for name, row in kernel_rows.items():
+        launches = (band_train_launches if name.startswith("band")
+                    else train_launches)[name]
+        rows.append({"name": name, "route": "cuda", "source": row["source"],
+                     "replaces": row["replaces"], "launches": launches,
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
+                     "bound_by": row["bound"][1],
+                     "library_ms": row["library_ms"]})
+    say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

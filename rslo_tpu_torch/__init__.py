@@ -3,13 +3,16 @@ Hopper (H100).
 
 Mirrors the module paths of the JAX package beside it, which stays the
 reference: each module here has its counterpart at the same path under
-``rslo_tpu/``.  The port imports ``torch`` and never ``jax``/``flax``;
-the one module it shares with the JAX package is the pure-dataclass
-``rslo_tpu.config.schema``.
+``rslo_tpu/``.  The port imports ``torch`` and never ``jax``/``flax``,
+and shares no module with the JAX package: what it needs of a module
+there, even a pure-Python one, it keeps as its own copy (``config``,
+``utils.synthetic``, ``geometry.transforms``).
 
 Ported so far (the streaming odometry path under the shipped
 ``configs/kitti_eval_ours.json`` and the self-supervised train step
-under ``configs/kitti_train_ours.json``):
+under ``configs/kitti_train_ours.json``, on the rulebook and the band
+sparse-conv engines):
+  config            — the pipeline's configuration schema
   utils.synthetic   — numpy synthetic LiDAR scans
   geometry          — quaternion, tq-map and weighted-Kabsch helpers
   ops.voxelize      — sort-based mean voxelizer
@@ -18,9 +21,11 @@ under ``configs/kitti_train_ours.json``):
   ops.dma_gather    — the hand-written Hopper kernels of the sparse conv
                       (csrc/gather_matmul.cu, csrc/row_gather.cu) and
                       the differentiable ``sparse_conv``
+  ops.band_conv     — banded window plans and the band engine's conv
+                      (csrc/band_conv.cu) with its gradient
   ops.chamfer       — the chamfer NN search (csrc/nn_search.cu)
   data.prepare      — mean-mode example preparation
-  models            — SparseMiddleCov (rulebook), BEVOdomNet, OdomNet,
+  models            — SparseMiddleCov (rulebook, band), BEVOdomNet, OdomNet,
                       eval and train mode
   losses            — adaptive L2, consistency/ICP, the whole objective
   train             — OneCycle AdamW, train state, step, checkpoints,

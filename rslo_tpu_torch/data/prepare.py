@@ -7,8 +7,7 @@ from typing import Dict
 
 import torch
 
-from rslo_tpu.config.schema import PipelineCfg
-
+from ..config.schema import PipelineCfg
 from ..ops.voxelize import VoxelizerConfig, voxelize_sorted_mean
 
 

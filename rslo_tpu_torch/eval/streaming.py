@@ -11,14 +11,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rslo_tpu.config.schema import PipelineCfg
-
+from ..config.schema import PipelineCfg
 from ..data.prepare import mean_vfe_ok, prepare_example, voxelizer_config
 from ..geometry import np_compose_pose
 
 
 class StreamingOdometry:
-    def __init__(self, net, cfg: PipelineCfg, device):
+    def __init__(self, net, cfg: PipelineCfg, device="cuda"):
         if not mean_vfe_ok(cfg):
             raise NotImplementedError(
                 f"VFE {cfg.vfe.name!r} is not ported; only the mean VFE")

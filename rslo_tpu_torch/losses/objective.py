@@ -15,8 +15,7 @@ from typing import Any, Dict, NamedTuple
 import torch
 import torch.nn.functional as F
 
-from rslo_tpu.config.schema import LossCfg
-
+from ..config.schema import LossCfg
 from ..geometry import (generate_tq_map, hemisphere, matrix_to_quat,
                         quat_to_matrix)
 from .adaptive import adaptive_weighted_l2

@@ -24,8 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rslo_tpu.config.schema import OdomCfg
-
+from ..config.schema import OdomCfg
 from ..geometry import decode_tq_map
 from .middle import update_running_stats
 

@@ -1,14 +1,23 @@
 """Sparse 3D middle feature extractor + per-voxel covariance decoder
-(counterpart of ``rslo_tpu/models/middle.py``; rulebook engine).
+(counterpart of ``rslo_tpu/models/middle.py``; rulebook and band
+engines).
 
 Channel plan: 16-16 @ full res -> 32-32 @ 1/2 -> 64s @ 1/4, 1/8 ->
 z-collapse -> dense BEV at 1/8 with C*D channels, plus an inverse-conv
 decoder from the 1/4-res level back to full resolution emitting 7
-covariance parameters per active voxel.  Each of the 20 sparse convs
-runs through the Hopper kernel ``ops.dma_gather.gather_matmul``; in
-train mode through ``ops.dma_gather.sparse_conv``, whose backward runs
-over the transposed rulebooks that ``build_geometry(transposed=True)``
-adds.
+covariance parameters per active voxel.
+
+Two engines share one parameter tree:
+  * ``engine="rulebook"``: each of the 20 sparse convs runs through the
+    Hopper kernel ``ops.dma_gather.gather_matmul``; in train mode
+    through ``ops.dma_gather.sparse_conv``, whose backward runs over the
+    transposed rulebooks that ``build_geometry(transposed=True)`` adds.
+  * ``engine="band"``: ``build_band_geometry`` wraps the rulebooks into
+    banded window plans (``ops.band_conv``), and each conv with a plan
+    runs through ``band_conv_apply`` (kernel B4); in train mode through
+    ``band_conv``.  Rulebooks narrower than ``band_min_channels`` stay
+    raw and go through the rulebook kernels.
+``engine="tiles"`` is not ported, by decision.
 
 ``MiddleCfg.remat`` is accepted and not applied: the port's sparse
 convs keep only their (V, Cin) inputs for the backward, so the middle's
@@ -26,14 +35,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from rslo_tpu.config.schema import MiddleCfg
-
+from ..config.schema import MiddleCfg
+from ..ops import band_conv as bc
 from ..ops import sparse_conv as sc
 from ..ops.dma_gather import gather_matmul, sparse_conv
 
 
 class FrameGeometry(NamedTuple):
-    """Per-frame sparse geometry shared across layers."""
+    """Per-frame sparse geometry shared across layers.  On the band
+    engine the entries of sub_rb, down_rb and inv_rb are band plans (or
+    raw rulebooks, for rulebooks left to the rulebook kernels)."""
     levels: tuple          # L0 (full res) .. L4 (z-collapsed)
     sub_rb: tuple          # submanifold rulebooks for L0..L3
     down_rb: tuple         # strided-conv rulebooks L0->L1 .. L3->L4
@@ -41,6 +52,10 @@ class FrameGeometry(NamedTuple):
     # transposes of down_rb (inverse rulebooks L1->L0 .. L4->L3), for
     # the backward; None unless built with transposed=True
     down_rb_t: Optional[tuple] = None
+    # band engine in training: the rulebook geometry the plans were
+    # built from (with its down_rb_t), whose raw rulebooks the backward
+    # of the down and inverse plans runs over
+    raw: Optional["FrameGeometry"] = None
 
 
 DOWN_SPECS = (
@@ -86,17 +101,76 @@ def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
                          down_rb_t)
 
 
+def build_band_geometry(coords: torch.Tensor, mask: torch.Tensor,
+                        sparse_shape, capacities,
+                        windows=(bc.SUBM_WINDOW, bc.DOWN_WINDOW,
+                                 bc.INV_WINDOW),
+                        block: int = 256, channels=None,
+                        min_channels: int = 0,
+                        lookup: Optional[str] = None,
+                        transposed: bool = False) -> FrameGeometry:
+    """Rulebook geometry with its rulebooks wrapped into band plans
+    (``ops.band_conv``): subm ones with ``windows[0]`` (self-transpose
+    plans), strided ones with ``windows[1]``, inverse ones with
+    ``windows[2]``.  When ``channels`` (the middle's (c0, c1, c2, c3)) is
+    given, a rulebook whose widest conv is narrower than
+    ``min_channels`` stays a raw rulebook.  ``transposed`` (training)
+    keeps the rulebook geometry, with its transposed rulebooks, in
+    ``raw``."""
+    geo = build_geometry(coords, mask, sparse_shape, capacities,
+                         lookup=lookup, transposed=transposed)
+    sw, dw, iw = windows
+    ch = (min_channels,) * 4 if channels is None else tuple(channels)
+    # widest conv through each rulebook (encoder + cov decoder reuse)
+    sub_w = ch
+    down_w = tuple(max(ch[i], ch[min(i + 1, 3)]) for i in range(4))
+    inv_w = (max(ch[2], ch[1]), max(ch[1], ch[0]))
+
+    def wrap(rb, v_in, window, width, self_transpose=False):
+        if width < min_channels:
+            return rb
+        return bc.build_band_index(rb, v_in, block=block, window=window,
+                                   self_transpose=self_transpose)
+
+    lv = geo.levels
+    sub = tuple(wrap(rb, lv[i].capacity, sw, sub_w[i], True)
+                for i, rb in enumerate(geo.sub_rb))
+    down = tuple(wrap(rb, lv[i].capacity, dw, down_w[i])
+                 for i, rb in enumerate(geo.down_rb))
+    inv = (wrap(geo.inv_rb[0], lv[2].capacity, iw, inv_w[0]),
+           wrap(geo.inv_rb[1], lv[1].capacity, iw, inv_w[1]))
+    return FrameGeometry(geo.levels, sub, down, inv,
+                         raw=geo if transposed else None)
+
+
+def band_overflow_counts(geo: FrameGeometry) -> dict:
+    """{"sub0".."inv1": (ov_count, ov_capacity)} of every band plan in
+    the geometry, the guard against the inexact saturated-overflow
+    path."""
+    out = {}
+    for name, rbs in (("sub", geo.sub_rb), ("down", geo.down_rb),
+                      ("inv", geo.inv_rb)):
+        for i, rb in enumerate(rbs):
+            if isinstance(rb, bc.BandIndex):
+                out[f"{name}{i}"] = (rb.ov_count, rb.ov_capacity)
+    return out
+
+
 class ConvOp(NamedTuple):
-    """A conv's rulebook, the transposed rulebook its backward runs over
-    (None without one), and whether that transpose flips the taps."""
-    rb: sc.ConvIndex
+    """A conv's raw rulebook, the transposed rulebook its backward runs
+    over (None without one), whether that transpose flips the taps, and
+    the conv's band plan on the band engine (None on the rulebook
+    engine; ``rb`` is then None outside training)."""
+    rb: Optional[sc.ConvIndex]
     rb_t: Optional[sc.ConvIndex] = None
     flip_taps: bool = False
+    plan: Optional[bc.BandIndex] = None
 
 
 class SpConv(nn.Module):
     """One sparse conv layer: kernel (taps, Cin, Cout) + bias, applied
-    through a rulebook by the gather-GEMM kernel."""
+    through a band plan by ``band_conv_apply`` or through a rulebook by
+    the gather-GEMM kernel."""
 
     def __init__(self, in_features: int, features: int, taps: int,
                  dtype: str = "bf16"):
@@ -108,7 +182,16 @@ class SpConv(nn.Module):
 
     def forward(self, feats: torch.Tensor, op: ConvOp,
                 out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if self.training and torch.is_grad_enabled():
+        train = self.training and torch.is_grad_enabled()
+        if op.plan is not None:
+            if train:
+                return bc.band_conv(feats, op.plan, self.kernel, self.bias,
+                                    out_mask, self.compute_dtype, op.rb,
+                                    op.rb_t)
+            return bc.band_conv_apply(feats, op.plan, self.kernel,
+                                      self.bias, out_mask,
+                                      self.compute_dtype)
+        if train:
             if op.rb_t is None:
                 raise ValueError(
                     "SpConv in train mode needs the transposed rulebook: "
@@ -167,11 +250,12 @@ class SparseMiddleCov(nn.Module):
 
     def __init__(self, cfg: MiddleCfg):
         super().__init__()
-        if cfg.engine != "rulebook":
+        if cfg.engine == "tiles":
             raise NotImplementedError(
-                f"engine={cfg.engine!r} is not ported; only 'rulebook' "
-                f"('band' is still to port, 'tiles' is not ported by "
-                f"decision)")
+                "engine='tiles' is not ported, by decision; use 'rulebook' "
+                "or 'band'")
+        if cfg.engine not in ("rulebook", "band"):
+            raise ValueError(f"unknown middle engine {cfg.engine!r}")
         if cfg.plan_lookup not in (None, "slot_map"):
             raise NotImplementedError(
                 f"plan_lookup={cfg.plan_lookup!r} is not ported, by "
@@ -255,27 +339,35 @@ class SparseMiddleCov(nn.Module):
 
 
 class _RulebookPlan:
-    """Op/mask provider for the sorted-level rulebook engine.  Every op
-    carries its transposed rulebook when the geometry has them: a
-    submanifold rulebook is its own transpose with the taps flipped;
-    inv(0) and inv(1) are transposed by down_rb[1] and down_rb[0]."""
+    """Op/mask provider for the sorted-level engines (rulebook, band).
+    Every op carries its transposed rulebook when the geometry has them:
+    a submanifold rulebook is its own transpose with the taps flipped;
+    inv(0) and inv(1) are transposed by down_rb[1] and down_rb[0].  On
+    the band engine an op carries its plan, and in training also its
+    raw rulebook."""
 
     def __init__(self, geo: FrameGeometry):
         self.geo = geo
-        self.grad = geo.down_rb_t is not None
+        self.rbs = geo if geo.raw is None else geo.raw   # raw rulebooks
+        self.grad = self.rbs.down_rb_t is not None
 
-    def _op(self, rb, rb_t, flip=False):
-        return ConvOp(rb, rb_t if self.grad else None, flip)
+    def _op(self, entry, raw, rb_t, flip=False):
+        rb_t = rb_t if self.grad else None
+        if isinstance(entry, bc.BandIndex):
+            return ConvOp(raw if self.grad else None, rb_t, flip, entry)
+        return ConvOp(entry, rb_t, flip)
 
     def subm(self, i):
-        return self._op(self.geo.sub_rb[i], self.geo.sub_rb[i], True)
+        rb = self.rbs.sub_rb[i]
+        return self._op(self.geo.sub_rb[i], rb, rb, True)
 
     def down(self, i):
-        return self._op(self.geo.down_rb[i],
-                        (self.geo.down_rb_t or self.geo.down_rb)[i])
+        return self._op(self.geo.down_rb[i], self.rbs.down_rb[i],
+                        (self.rbs.down_rb_t or self.rbs.down_rb)[i])
 
     def inv(self, i):
-        return self._op(self.geo.inv_rb[i], self.geo.down_rb[1 - i])
+        return self._op(self.geo.inv_rb[i], self.rbs.inv_rb[i],
+                        self.rbs.down_rb[1 - i])
 
     def mask(self, i):
         return self.geo.levels[i].mask

@@ -17,11 +17,10 @@ from typing import Any, Dict, Optional
 import torch
 from torch import nn
 
-from rslo_tpu.config.schema import PipelineCfg, grid_size
-
+from ..config.schema import PipelineCfg, grid_size
 from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
-                     build_geometry)
+                     build_band_geometry, build_geometry)
 
 
 # flax's truncated_normal: N(0, 1) cut at +-2, then scaled by
@@ -92,13 +91,19 @@ class OdomNet(nn.Module):
                 mod.bias.copy_(identity_pose_bias())
 
     def _middle_geometry(self, coords, vmask):
-        """Per-frame sparse geometry of the rulebook engine, with the
+        """Per-frame sparse geometry of the configured engine, with the
         transposed rulebooks when training needs gradients."""
+        m = self.cfg.middle
+        grad = self.training and torch.is_grad_enabled()
+        if m.engine == "band":
+            return build_band_geometry(
+                coords, vmask, self.sparse_shape, m.level_capacities,
+                windows=tuple(m.band_windows), block=m.band_block,
+                channels=tuple(m.channels), min_channels=m.band_min_channels,
+                lookup=m.plan_lookup, transposed=grad)
         return build_geometry(coords, vmask, self.sparse_shape,
-                              self.cfg.middle.level_capacities,
-                              lookup=self.cfg.middle.plan_lookup,
-                              transposed=(self.training and
-                                          torch.is_grad_enabled()))
+                              m.level_capacities, lookup=m.plan_lookup,
+                              transposed=grad)
 
     def forward(self, example: Dict[str, Any]) -> dict:
         """example (single sample, no batch dim), as prepare_example

@@ -96,7 +96,7 @@ def _check(features, idx, valid, weights, bias, out_mask, compute_dtype):
     return tensors
 
 
-def _require_cuda(dev, name, tensors):
+def require_cuda(dev, name, tensors):
     if dev.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
     if not all(t.is_contiguous() for t in tensors):
@@ -152,7 +152,7 @@ def gather_matmul(features: torch.Tensor, idx: torch.Tensor,
     if dev.type == "cpu":
         return sparse_conv_apply(features, ConvIndex(idx, valid), weights,
                                  bias, out_mask, compute_dtype)
-    _require_cuda(dev, "gather_matmul", tensors)
+    require_cuda(dev, "gather_matmul", tensors)
     out = _launch_gather_matmul(
         features, idx, valid, weights, bias, out_mask,
         _MODE_BF16 if compute_dtype == torch.bfloat16 else _MODE_F32)
@@ -183,7 +183,7 @@ def gather_matmul_dgrad(ct: torch.Tensor, idx_t: torch.Tensor,
     if dev.type == "cpu":
         return sparse_conv_dgrad(ct, ConvIndex(idx_t, valid_t), weights_t,
                                  compute_dtype)
-    _require_cuda(dev, "gather_matmul_dgrad", tensors)
+    require_cuda(dev, "gather_matmul_dgrad", tensors)
     out = _launch_gather_matmul(
         ct, idx_t, valid_t, weights_t, None, None,
         _MODE_BF16_DGRAD if compute_dtype == torch.bfloat16 else _MODE_F32)
@@ -221,7 +221,7 @@ def row_gather(features: torch.Tensor, idx: torch.Tensor,
     dev = features.device
     if dev.type == "cpu":
         return features[idx]
-    _require_cuda(dev, "row_gather", (features, idx))
+    require_cuda(dev, "row_gather", (features, idx))
     return _launch_row_gather(features, idx)
 
 
@@ -250,7 +250,7 @@ row_gather.launches = 0
 
 
 @contextlib.contextmanager
-def _f32_matmul():
+def f32_matmul():
     """Full-f32 matrix products (no TF32), as JAX's HIGHEST."""
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -286,32 +286,48 @@ class _SparseConv(torch.autograd.Function):
     def backward(ctx, ct):
         features, weights, idx, valid, idx_t, valid_t, out_mask = \
             ctx.saved_tensors
-        cdt = ctx.compute_dtype
         ct = ct.contiguous()
         if out_mask is not None:
             ct = torch.where(out_mask[:, None], ct, 0.0)
-        d_feat = d_w = d_bias = None
-        if ctx.needs_input_grad[0]:
-            w_t = round_operand(weights, cdt)
-            if ctx.flip_taps:
-                w_t = w_t.flip(0)
-            d_feat = gather_matmul_dgrad(
-                ct, idx_t, valid_t, w_t.transpose(1, 2).contiguous(), cdt)
-        if ctx.needs_input_grad[1]:
-            V, K = idx.shape
-            Cin = features.shape[1]
-            # rulebook rows lie in [0, Vin) by construction (the
-            # slot-map lookup clamps them)
-            g = row_gather(features.contiguous(), idx.reshape(-1),
-                           check=False)
-            g = torch.where(valid.reshape(-1, 1), g, 0.0)
-            g = round_operand(g.reshape(V, K * Cin), cdt)
-            with _f32_matmul():
-                d_w = g.t() @ ct
-            d_w = round_operand(d_w, cdt).reshape(K, Cin, -1)
-        if ctx.needs_input_grad[2]:
-            d_bias = ct.sum(0)
+        d_feat, d_w = sparse_conv_grads(
+            features, weights, ConvIndex(idx, valid),
+            ConvIndex(idx_t, valid_t), ctx.flip_taps, ct, ctx.compute_dtype,
+            *ctx.needs_input_grad[:2])
+        d_bias = ct.sum(0) if ctx.needs_input_grad[2] else None
         return d_feat, d_w, d_bias, None, None, None, None, None
+
+
+def sparse_conv_grads(features: torch.Tensor, weights: torch.Tensor,
+                      rulebook: ConvIndex, rulebook_t: ConvIndex,
+                      flip_taps: bool, ct: torch.Tensor, compute_dtype,
+                      need_features: bool = True,
+                      need_weights: bool = True):
+    """(d_features, d_W) of ``gather_matmul`` for the output cotangent
+    ``ct`` (already zeroed where ``out_mask`` is false); either is None
+    when not needed.  d_features runs ``gather_matmul_dgrad`` over
+    ``rulebook_t``; d_W is ``row_gather``'s im2col times ``ct`` in one
+    f32 product, rounded to the compute dtype (see ``_SparseConv``)."""
+    d_feat = d_w = None
+    if need_features:
+        w_t = round_operand(weights, compute_dtype)
+        if flip_taps:
+            w_t = w_t.flip(0)
+        d_feat = gather_matmul_dgrad(
+            ct, rulebook_t.idx, rulebook_t.valid,
+            w_t.transpose(1, 2).contiguous(), compute_dtype)
+    if need_weights:
+        V, K = rulebook.idx.shape
+        Cin = features.shape[1]
+        # rulebook rows lie in [0, Vin) by construction (the slot-map
+        # lookup clamps them)
+        g = row_gather(features.contiguous(), rulebook.idx.reshape(-1),
+                       check=False)
+        g = torch.where(rulebook.valid.reshape(-1, 1), g, 0.0)
+        g = round_operand(g.reshape(V, K * Cin), compute_dtype)
+        with f32_matmul():
+            d_w = g.t() @ ct
+        d_w = round_operand(d_w, compute_dtype).reshape(K, Cin, -1)
+    return d_feat, d_w
 
 
 def sparse_conv(features: torch.Tensor, rulebook: ConvIndex,

@@ -11,8 +11,7 @@ from typing import Iterable, Optional
 
 import torch
 
-from rslo_tpu.config.schema import PipelineCfg
-
+from ..config.schema import PipelineCfg
 from ..convert import is_flax_kernel
 from ..models.net import OdomNet
 from .checkpoint import CheckpointManager

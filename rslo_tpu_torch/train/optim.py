@@ -20,7 +20,7 @@ from typing import Callable, Dict
 
 import torch
 
-from rslo_tpu.config.schema import OptimizerCfg, TrainCfg
+from ..config.schema import OptimizerCfg, TrainCfg
 
 _F32 = torch.float32
 

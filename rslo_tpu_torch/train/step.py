@@ -12,8 +12,7 @@ from typing import Dict
 
 import torch
 
-from rslo_tpu.config.schema import PipelineCfg
-
+from ..config.schema import PipelineCfg
 from ..data.prepare import mean_vfe_ok, prepare_example, voxelizer_config
 from ..losses.objective import compute_objective
 from .state import TrainState

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import jax_variables, np_, port_cfg, to_jax, tt
+from torch_port_helpers import (jax_variables, np_, port_cfg, to_jax,
+                                to_port, tt)
 
 from rslo_tpu.models.bev_net import BEVOdomNet as JaxBEV
 from rslo_tpu_torch.convert import load_flax_variables
@@ -35,7 +36,8 @@ def test_bev_net_matches_jax(precision):
     ref = jax.jit(lambda v, a: jmod.apply(v, a, train=False))(
         to_jax(variables), jnp.asarray(x))
 
-    mod = load_flax_variables(BEVOdomNet(cfg.odom, pc_range), variables)
+    mod = load_flax_variables(BEVOdomNet(to_port(cfg).odom, pc_range),
+                              variables)
     with torch.no_grad():
         out = mod.eval()(tt(x))
     tol = TOL[precision]

@@ -1,4 +1,6 @@
-"""The PyTorch port imports torch and never jax or flax."""
+"""The PyTorch port imports torch and never jax, flax or the JAX package
+(``rslo_tpu``), and neither does ``chip_smoke.py``."""
+import ast
 import os
 import subprocess
 import sys
@@ -12,7 +14,9 @@ names = [m.name for m in pkgutil.walk_packages(rslo_tpu_torch.__path__,
                                                "rslo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
-print(len(names), sorted(m for m in ("jax", "flax") if m in sys.modules))
+leaked = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "flax", "rslo_tpu"))
+print(len(names), leaked)
 """
 
 
@@ -22,6 +26,40 @@ def test_port_modules_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    # every subpackage and module of the slice is walked
-    assert int(n) >= 20, out.stdout
+    # every subpackage and module of the port is walked
+    assert int(n) >= 24, out.stdout
     assert leaked.strip() == "[]", out.stdout
+
+
+def _imported_roots(path):
+    """Top-level module names of every import statement in a file."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_chip_smoke_imports_no_jax():
+    roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
+    assert "rslo_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "flax", "rslo_tpu"}, sorted(roots)
+
+
+def test_port_sources_import_no_jax():
+    """No import statement of the port names the JAX package, jax or
+    flax, including ones inside functions that the import walk above
+    does not run."""
+    bad = {}
+    for root, _, files in os.walk(os.path.join(REPO, "rslo_tpu_torch")):
+        for name in files:
+            if name.endswith(".py"):
+                path = os.path.join(root, name)
+                hit = _imported_roots(path) & {"jax", "flax", "rslo_tpu"}
+                if hit:
+                    bad[os.path.relpath(path, REPO)] = sorted(hit)
+    assert not bad, bad

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_port_helpers import np_, port_cfg, tt
+from torch_port_helpers import np_, port_cfg, to_port, tt
 
 import rslo_tpu.losses.consistency as jcons
 from rslo_tpu import geometry as jgeo
@@ -268,7 +268,8 @@ def test_objective_matches_jax(pallas_nn, mode):
     ta = {k: torch.tensor(v, requires_grad=True) for k, v in alphas.items()}
     out = compute_objective(_join(tp, *leaves), {k: tt(v) for k, v in
                                                  example.items()},
-                            ta, loss_cfg, pc_range, warmup=warmup,
+                            ta, to_port(cfg.replace(loss=loss_cfg)).loss,
+                            pc_range, warmup=warmup,
                             self_supervised=selfsup)
     out.total.backward()
     np.testing.assert_allclose(float(out.total), float(ref), **LOSS_TOL)

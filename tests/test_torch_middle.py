@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 
 from torch_port_helpers import (jax_variables, port_cfg, tiny_scans,
-                                to_jax, tt)
+                                to_jax, to_port, tt)
 
 from rslo_tpu.data.prepare import prepare_example as jax_prepare
 from rslo_tpu.data.prepare import voxelizer_config
@@ -43,7 +43,8 @@ def test_sparse_middle_matches_jax(precision, middle_bn):
         lambda v, f, g: jmod.apply(v, f, g, train=False))(
             to_jax(variables), feats, geo)
 
-    mod = load_flax_variables(SparseMiddleCov(cfg.middle), variables).eval()
+    mod = load_flax_variables(SparseMiddleCov(to_port(cfg).middle),
+                              variables).eval()
     bev, cov = mod(tt(feats), build_geometry(tt(coords), tt(mask),
                                              SPARSE_SHAPE, caps))
     assert bev.shape == ref_bev.shape == (16, 16, 32)

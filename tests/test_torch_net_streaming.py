@@ -9,7 +9,7 @@ import pytest
 import torch
 
 from torch_port_helpers import (jax_variables, np_, port_cfg, tiny_scans,
-                                to_jax, tt)
+                                to_jax, to_port, tt)
 
 from rslo_tpu.data.prepare import prepare_example as jax_prepare
 from rslo_tpu.data.prepare import voxelizer_config as jax_vcfg
@@ -37,7 +37,7 @@ def setup(request):
                      jnp.ones((2, len(scans[0])), bool), jax_vcfg(cfg),
                      mean_mode=True)
     variables = jax_variables(jnet, 0, ex, train=False)
-    net = load_flax_variables(OdomNet(cfg), variables).eval()
+    net = load_flax_variables(OdomNet(to_port(cfg)), variables).eval()
     return precision, cfg, scans, jnet, ex, variables, net
 
 
@@ -45,7 +45,7 @@ def _port_forward(net, cfg, scans):
     ex = prepare_example(tt(np.stack(scans)),
                          torch.ones(len(scans), len(scans[0]),
                                     dtype=torch.bool),
-                         voxelizer_config(cfg), mean_mode=True)
+                         voxelizer_config(to_port(cfg)), mean_mode=True)
     with torch.no_grad():
         return net(ex)
 
@@ -68,7 +68,7 @@ def test_two_frame_forward_matches_jax(setup):
 def test_streaming_matches_jax_and_two_frame(setup):
     precision, cfg, scans, jnet, _, variables, net = setup
     jstream = JaxStreaming(jnet, to_jax(variables), cfg)
-    stream = StreamingOdometry(net, cfg, "cpu")
+    stream = StreamingOdometry(net, to_port(cfg), "cpu")
     for scan in scans:
         ref = jstream.push(scan)
         pose = stream.push(scan)

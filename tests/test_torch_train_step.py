@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from torch_port_helpers import (jax_variables, np_, port_cfg, tiny_scans,
-                                to_jax, tt)
+                                to_jax, to_port, tt)
 
 import rslo_tpu.losses.consistency as jax_consistency
 from rslo_tpu.data.prepare import prepare_example as jax_prepare
@@ -159,8 +159,9 @@ def setup():
                 loss=loss, aux=aux, grads=grads, stats=stats,
                 trainable=trainable)))
 
-    net = load_flax_variables(OdomNet(cfg), variables)
-    opt = make_optimizer(cfg, net)
+    pcfg = to_port(cfg)
+    net = load_flax_variables(OdomNet(pcfg), variables)
+    opt = make_optimizer(pcfg, net)
     state = TrainState.create(net, opt, {"rot": -2.5, "trans": 0.0})
     tbatch = {k: tt(v) for k, v in batch.items()}
     port = []
@@ -168,7 +169,8 @@ def setup():
         grads = {}
         hooks = [p.register_hook(lambda g, n=n: grads.__setitem__(n, g))
                  for n, p in state.trainable().items()]
-        state, metrics = train_step(state, tbatch, cfg, opt, warmup=False)
+        state, metrics = train_step(state, tbatch, pcfg, opt,
+                                    warmup=False)
         for h in hooks:
             h.remove()
         port.append(dict(
@@ -229,7 +231,7 @@ def test_first_step_running_stats_match_jax(setup):
 def test_three_steps_params_match_jax(setup):
     steps, port = setup
     cfg = step_cfg()
-    lr = optim.onecycle_lr(cfg.optimizer, cfg.train.steps)
+    lr = optim.onecycle_lr(to_port(cfg).optimizer, cfg.train.steps)
     loose = {}
     for k in range(N_STEPS):
         ref, params = steps[k]["trainable"], port[k]["params"]
@@ -279,7 +281,7 @@ def test_bev_net_train_mode_matches_jax():
     (ref, ref_stats), ref_grads = jax.jit(jax.value_and_grad(
         jax_loss, has_aux=True))(to_jax(variables["params"]))
 
-    mod = load_flax_variables(BEVOdomNet(cfg.odom, pc_range),
+    mod = load_flax_variables(BEVOdomNet(to_port(cfg).odom, pc_range),
                               variables).train()
     out = mod(tt(x))
     loss = sum(torch.sum(out[k] * tt(w[k])) for k in w)
@@ -305,7 +307,7 @@ def test_onecycle_schedules_match_jax(step):
     for port_fn, jax_fn in ((optim.onecycle_lr, jax_optim.onecycle_lr),
                             (optim.onecycle_momentum,
                              jax_optim.onecycle_momentum)):
-        got = float(port_fn(cfg.optimizer, total)(step))
+        got = float(port_fn(to_port(cfg).optimizer, total)(step))
         want = float(jax_fn(cfg.optimizer, total)(step))
         np.testing.assert_allclose(got, want, rtol=1e-6, err_msg=str(step))
 
@@ -316,7 +318,7 @@ def test_init_is_flax_truncated_normal():
     variance_scaling(..., "truncated_normal"); std within 5%."""
     cfg = port_cfg("f32").replace(middle=dataclasses.replace(
         port_cfg("f32").middle, channels=(16, 32, 64, 64)))
-    net = OdomNet(cfg, torch.Generator().manual_seed(0))
+    net = OdomNet(to_port(cfg), torch.Generator().manual_seed(0))
     kern = net.middle.SpConv_9.kernel.detach()      # (27, 64, 64)
     assert kern.shape == (27, 64, 64)
     conv = net.bev_net.BasicBlock_2.MaskConv_0.Conv_0.weight.detach()

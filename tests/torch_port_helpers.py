@@ -5,6 +5,8 @@ weights go through the JAX package and its port.
 Weights: the JAX module's own ``init`` (jitted) makes the tree, numpy
 perturbs every leaf (BN running statistics included, so no BN is the
 identity), and ``rslo_tpu_torch.convert`` carries it into the port.
+Configs: the JAX package's config goes to the JAX side and its
+``to_port`` copy (the port's own schema) to the port.
 """
 import dataclasses
 import sys
@@ -14,10 +16,30 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
+from rslo_tpu_torch.config import schema as port_schema
+
 sys.path.insert(0, "tests")
 from test_model import tiny_cfg  # noqa: E402
 
 torch.set_num_threads(1)
+
+
+def to_port(jax_cfg):
+    """The port's PipelineCfg with the same values as a JAX one."""
+    return port_schema.PipelineCfg.from_json(jax_cfg.to_json())
+
+
+def interpreted_pallas(monkeypatch):
+    """Force pallas_call into interpret mode (no TPU here), as
+    tests/test_band_conv.py does."""
+    import jax.experimental.pallas as pl
+    orig = pl.pallas_call
+
+    def patched(*a, **k):
+        k["interpret"] = True
+        return orig(*a, **k)
+
+    monkeypatch.setattr(pl, "pallas_call", patched)
 
 
 def port_cfg(precision: str, middle_bn: str = "none"):
