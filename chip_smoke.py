@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch port (``rslo_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from ``rslo_tpu_torch/csrc/`` and drives
 its main paths with seeded random weights: the serving path,
@@ -17,22 +17,27 @@ exits non-zero when it fails):
   3. hold ``gather_matmul`` (B1) against its plain version on the card,
      at the 20 sparse-conv calls of one KITTI-scale frame, in bf16 and
      f32, plus an edge case (all-invalid rows, masked rows, ragged V,
-     NaN rows that only invalid taps point at)
+     NaN rows that only invalid taps point at), and a dense case: a
+     solid cube of 32^3 active voxels (~25 of 27 taps valid per row) at
+     64 -> 64, where B1 and B4 (forward and feature gradient, bf16 and
+     f32) are held against their plain versions
   4. stream 8 synthetic KITTI-scale scans: finite poses, exactly 20
      kernel launches per scan, pose after scan 2 == the two-frame
      forward
   5. time streaming, the two-frame forward and the kernel vs its plain
-     version
+     version; B1's device time at each of the 20 convs and its frame sum
   6. band engine, serving: the overflow audit (every plan's overflow
      count at most half its capacity); ``band_matmul`` (B4) and
      ``band_gather`` (B5) against their plain versions at the 20 band
      convs of the frame in bf16 and f32 (B5 bit-equal), plus edge cases
-     (an overflow-heavy tiny-window plan, all-invalid ``sel``, a ragged
-     V, NaN rows that only ``sel = -1`` would point at); 8 scans through
+     (an overflow-heavy tiny-window plan, a plan block of 100 rows,
+     all-invalid ``sel``, a ragged V, NaN rows that only ``sel = -1``
+     would point at); 8 scans through
      ``StreamingOdometry``: exactly 20 B4 and 0 ``gather_matmul``
      launches per scan, pose after scan 2 == the two-frame forward;
      timing of streaming, the two-frame forward, and B4 and B5 against
-     their plain versions and against B1 at the same conv
+     their plain versions and against B1 at the same conv; B4 at each of
+     the 20 band convs and its frame sum
   7. ``nn_search`` (B3) bit-equal to its plain version at the deployed
      3 x 20000 x 20000, plus ties, an all-invalid tgt, masked src rows
      and ragged N, M
@@ -50,25 +55,46 @@ exits non-zero when it fails):
      equal to the prediction worked out from the convs' ops; the
      checkpoint written and restored
  11. time the train step (both variants, both engines), peak device
-     memory, and each backward kernel against its plain version
+     memory, and each backward kernel against its plain version; B1's
+     feature gradient at the 19 backward convs and B4's at the
+     submanifold plans, each with its frame sum; the dense case timed
      (phases 5, 6 and 11 run before 12 and 13, whose CPU threads would
      share the host)
  12. the two-frame forward on the card against the same model on the
      CPU (plain versions), in float32 at the same widths; and the band
      engine against the rulebook engine on the card, in float32
- 13. one f32 train step on the card against the CPU, same weights and
-     batch: loss terms and per-leaf gradients; and the band engine's f32
+ 13. one f32 train step on the card against the CPU, same weights (the
+     seeded initial weights of phase 10's rulebook trainer) and batch:
+     loss terms (each beside the change that weights jittered by 1e-7
+     make on the card) and per-leaf gradients; and the band engine's f32
      step against the rulebook engine's on the card
+
+Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
+calls are captured in a CUDA graph and replayed, so the host's launch
+rate does not enter them.  B2 and B3 are timed over back-to-back calls
+launched from the host (CUDA events), and so is B1 at the L0 conv once
+more (``host_ms``), which keeps the wrapper's host cost in view.
+``--parent DIR`` also builds the gather-GEMM sources of another checkout
+(``DIR/rslo_tpu_torch/csrc/``, the same C interface) and times them
+against this one at every conv, in turns; and in phase 13 it reads the
+f32 train step at the trained weights (the rulebook trainer's, after
+phases 10 and 11) on the card, with this checkout's kernels and with the
+other's, each against the CPU (printed, not held: the trained weights
+differ from run to run).
 
 The last two lines of standard output are the kernel summary (JSON)
 and the result (JSON); the card's ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
+import argparse
+import contextlib
+import ctypes
 import copy
 import dataclasses
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -167,10 +193,22 @@ def build_kernels(_build):
         _build.load_library(name)
     say(f"[build] {', '.join(KERNELS)} built in "
         f"{time.perf_counter() - t0:.2f} s")
+    # ptxas -v: registers of each kernel; the gather-GEMM instantiations
+    # by mode (0 f32, 1 bf16, 2 bf16 dgrad), k steps and n tiles
+    modes = {"0": "f32", "1": "bf16", "2": "bf16-dgrad"}
     for name, log in logs.items():
+        entry = name
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"  {name}: {line.strip()}")
+            m = re.search(r"entry function '([^']+)'", line)
+            if m:
+                g = re.search(r"gather_gemm_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                              m.group(1))
+                entry = (f"gather_gemm<{modes[g[1]]}, KS {g[2]}, NT {g[3]}>"
+                         if g else m.group(1)[:40])
+            elif "registers" in line or ("spill" in line and
+                                         " 0 bytes spill stores, 0 bytes "
+                                         "spill loads" not in line):
+                say(f"  {name}: {entry}: {line.split(':', 1)[-1].strip()}")
 
 
 def randomize_bn(net, gen):
@@ -281,6 +319,121 @@ def turns_us(named, n, torch):
     for name, fn in named + named[::-1]:
         us.setdefault(name, []).append(event_us(fn, n, torch))
     return {name: statistics.mean(v) for name, v in us.items()}
+
+
+def graph_us(named, n, torch, reps=5):
+    """Device µs per call of each (name, fn): ``n`` calls captured in one
+    CUDA graph, replayed ``reps`` times between CUDA events, in turns
+    (the list in order, then reversed).  A replay runs the launches back
+    to back, so the host's launch rate does not enter the time."""
+    graphs = {}
+    side = torch.cuda.Stream()
+    for name, fn in named:
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):                 # warm-up
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        graphs[name] = graph
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    us = {}
+    for name, _ in named + named[::-1]:
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(reps):
+            graphs[name].replay()
+        end.record()
+        torch.cuda.synchronize()
+        us.setdefault(name, []).append(
+            start.elapsed_time(end) / (n * reps) * 1e3)
+    del graphs
+    return {name: statistics.mean(v) for name, v in us.items()}
+
+
+def load_parent_libraries(parent, _build, dma_gather, bc):
+    """Build ``gather_matmul.cu`` and ``band_conv.cu`` of another
+    checkout (``parent``) and load them with this checkout's C
+    signatures."""
+    out_dir = os.path.join(REPO, "build", "parent_kernels")
+    os.makedirs(out_dir, exist_ok=True)
+    names = ("gather_matmul", "band_conv")
+
+    def build(name):
+        src = os.path.join(parent, "rslo_tpu_torch", "csrc", f"{name}.cu")
+        lib = os.path.join(out_dir, f"lib{name}.so")
+        proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
+                               src], capture_output=True, text=True,
+                              timeout=600)
+        if proc.returncode != 0:
+            fail(f"nvcc failed on the parent's {src}:\n{proc.stderr}")
+        return lib
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        paths = dict(zip(names, pool.map(build, names)))
+    ours = {"gather_matmul": dma_gather._library(), "band_conv": bc._library()}
+    libs = {}
+    for name, path in paths.items():
+        lib = ctypes.CDLL(path)
+        for fn in ("gather_matmul_launch", "gather_matmul_max_channels",
+                   "band_matmul_launch", "band_gather_launch",
+                   "band_matmul_max_channels"):
+            if hasattr(ours[name], fn):
+                getattr(lib, fn).argtypes = getattr(ours[name], fn).argtypes
+                getattr(lib, fn).restype = getattr(ours[name], fn).restype
+        libs[name] = lib
+    say(f"[build] the parent's {', '.join(names)} from {parent}")
+
+    @contextlib.contextmanager
+    def routed():
+        """The wrappers launch the parent's kernels inside the block."""
+        saved = dma_gather._library, bc._library
+        dma_gather._library = lambda: libs["gather_matmul"]
+        bc._library = lambda: libs["band_conv"]
+        try:
+            yield
+        finally:
+            dma_gather._library, bc._library = saved
+    return routed
+
+
+def gemm_bound(inputs, out_rows, cin, cout, pairs):
+    """``bound_ms`` of a gather-GEMM: its inputs read once, its (out_rows,
+    cout) f32 output written once, 2 * cin * cout operations per valid
+    pair (bf16 tensor-core rate)."""
+    return bound_ms(nbytes(*inputs) + out_rows * cout * 4,
+                    2.0 * pairs * cin * cout)
+
+
+def time_convs(label, cases, torch, parent=None):
+    """Device µs per call (``graph_us``, 20 calls a graph) of each
+    (desc, fn, bound) in ``cases``, and with ``parent`` (the context of
+    ``load_parent_libraries``) the parent's kernel in turns.  Prints a
+    line per conv and the frame sum; returns the frame sum in ms."""
+    total = {"new": 0.0, "parent": 0.0}
+    for desc, fn, bnd in cases:
+        named = [("new", fn)]
+        if parent is not None:
+            def on_parent(fn=fn):
+                with parent():
+                    return fn()
+            named = [("parent", on_parent)] + named
+        us = graph_us(named, 20, torch)
+        for name, t in us.items():
+            total[name] += t / 1e3
+        old = ("" if parent is None else
+               f", parent {us['parent']:8.2f} us ({us['parent'] / us['new']:.2f}x)")
+        say(f"  {label} {desc}: {us['new']:8.2f} us{old}; bound "
+            f"{bnd[0] * 1e3:7.2f} us ({bnd[1]})")
+    old = "" if parent is None else f", parent {total['parent']:.4f} ms"
+    say(f"[convs] {label}: frame sum {total['new']:.4f} ms over {len(cases)} "
+        f"convs{old}")
+    return total["new"]
 
 
 def profile_pushes(stream, scans, torch):
@@ -489,7 +642,8 @@ def check_band_kernels(cases, bc, torch):
 
 def band_edge_cases(rb_call, plan, bc, sc, torch):
     """(label, f_pad, w, plan) edge cases at the L0 subm conv: an
-    overflow-heavy tiny-window plan, all-invalid sel, a ragged V, and
+    overflow-heavy tiny-window plan, a plan block of 100 rows (B4's
+    64-row tiles straddle plan blocks), all-invalid sel, a ragged V, and
     NaN rows that only sel = -1 would point at.  Also holds the whole
     overflow-heavy conv (B4 + the f32 overflow epilogue) against the
     rulebook conv in f32."""
@@ -527,8 +681,83 @@ def band_edge_cases(rb_call, plan, bc, sc, torch):
     f_nan = torch.where(used[:, None], f_pad, float("nan"))
     say(f"  edge cases: all-invalid sel gives zeros; ragged V={V - 37}; "
         f"{int((~used).sum())} NaN rows that only sel = -1 would reach")
+    odd = bc.build_band_index(rb, V, block=100, ov_capacity=n_valid,
+                              self_transpose=True)
     return [("tiny window", f_pad, w, tiny),
+            ("block 100", bc.pad_rows(f, odd.v_in), w, odd),
             ("ragged V, NaN rows", f_nan, w, ragged)]
+
+
+DENSE_SIDE = 32   # the dense case: a solid cube of DENSE_SIDE^3 voxels
+DENSE_C = 64
+
+
+def dense_case(bc, sc, torch, dev):
+    """A solid cube of active voxels (nearly all 27 taps valid per row),
+    its submanifold rulebook and band plan, and 64 -> 64 weights.
+    Returns a dict of the operands."""
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = DENSE_SIDE
+    r = torch.arange(n, dtype=torch.int32, device=dev)
+    coords = torch.stack(torch.meshgrid(r, r, r, indexing="ij"),
+                         -1).reshape(-1, 3)
+    V = coords.shape[0]
+    level = sc.with_slot_map(sc.level_from_coords(
+        coords, torch.ones(V, dtype=torch.bool, device=dev), (n, n, n)))
+    rb = sc.build_submanifold_index(level)
+    plan = bc.build_band_index(rb, V, self_transpose=True)
+    if int(plan.ov_count) != 0:
+        fail(f"the dense cube's band plan overflows ({int(plan.ov_count)} "
+             f"pairs): B4 would not cover every pair")
+    C = DENSE_C
+    f = torch.randn(V, C, device=dev, generator=gen)
+    w = torch.randn(27, C, C, device=dev, generator=gen) / math.sqrt(27 * C)
+    b = torch.randn(C, device=dev, generator=gen)
+    om = torch.rand(V, device=dev, generator=gen) < 0.9
+    ct = torch.randn(V, C, device=dev, generator=gen)
+    say(f"[dense] cube of {n}^3 = {V} voxels, {C} -> {C}: "
+        f"{int(rb.valid.sum()) / V:.2f} valid taps per row of 27; band plan "
+        f"(block {plan.sel.shape[2]}, window {plan.window}) with no overflow")
+    return dict(f=f, rb=rb, w=w, b=b, om=om, ct=ct, plan=plan,
+                f_pad=bc.pad_rows(f, plan.v_in),
+                ct_pad=bc.pad_rows(ct, plan.v_in))
+
+
+def check_dgrad(label, ct, rb_t, w_t, gather_matmul_dgrad,
+                sparse_conv_dgrad, torch):
+    """B1's feature-gradient mode against ``sparse_conv_dgrad``, bf16 and
+    f32: |err| <= BWD_REL_TOL * sum|terms| + ABS (w_t rounded to the
+    compute dtype, as the backward passes it)."""
+    for dt_name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        wr = w_t.to(dt).float() if dt == torch.bfloat16 else w_t
+        out = gather_matmul_dgrad(ct, rb_t.idx, rb_t.valid, wr, dt)
+        ref = sparse_conv_dgrad(ct, rb_t, wr, dt)
+        mag = sparse_conv_dgrad(ct.abs(), rb_t, wr.abs())
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        say(f"  {label} B1 dgrad {dt_name:4s} max_abs={err.max().item():.3e}"
+            f", {int((err > 0).sum())} of {err.numel()} entries differ")
+        if (not torch.isfinite(out).all() or
+                (err > BWD_REL_TOL[dt_name] * mag + KERNEL_ABS_TOL).any()):
+            fail(f"gather_matmul_dgrad != sparse_conv_dgrad at {label} "
+                 f"({dt_name}): max |err| {err.max().item():.3e}")
+
+
+def check_dense(d, bc, gather_matmul, gather_matmul_dgrad,
+                sparse_conv_apply, sparse_conv_dgrad, torch):
+    """B1 and B4, forward and feature gradient, bf16 and f32, against
+    their plain versions on the dense cube; B4's feature gradient is B4
+    itself (the forward's arithmetic), held to the forward's tolerance.
+    Returns the largest forward |error| of B1 and of B4."""
+    b1 = check_kernel([(d["f"], d["rb"], d["w"], d["b"], d["om"])],
+                      gather_matmul, sparse_conv_apply, torch)
+    w_t = d["w"].flip(0).transpose(1, 2).contiguous()
+    check_dgrad("dense cube", d["ct"], d["rb"], w_t, gather_matmul_dgrad,
+                sparse_conv_dgrad, torch)
+    b4 = check_band_kernels([("dense cube", d["f_pad"], d["w"], d["plan"]),
+                             ("dense cube, dgrad", d["ct_pad"], w_t,
+                              d["plan"])], bc, torch)
+    return b1, b4
 
 
 def overflow_audit(label, geo, band_overflow_counts, share=None):
@@ -555,6 +784,10 @@ def overflow_audit(label, geo, band_overflow_counts, share=None):
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="a checkout whose gather-GEMM kernels "
+                    "are timed against this one's at every conv")
+    opts = ap.parse_args()
     import numpy as np
     import torch
 
@@ -596,6 +829,9 @@ def main():
 
     # -- 2. build ---------------------------------------------------------
     build_kernels(_build)
+    parent = (load_parent_libraries(opts.parent, _build, dma_gather, bc)
+              if opts.parent else None)
+    frame_ms = {}
 
     # -- 3. kernel vs plain at the main path's 20 conv calls --------------
     with open(CONFIG) as fh:
@@ -634,6 +870,12 @@ def main():
         worst = max(worst, check_kernel(
             [edge_case(calls[1], torch)], gather_matmul, sparse_conv_apply,
             torch))
+        dense = dense_case(bc, sc, torch, dev)
+        dense_b1, dense_b4 = check_dense(dense, bc, gather_matmul,
+                                         gather_matmul_dgrad,
+                                         sparse_conv_apply,
+                                         sparse_conv_dgrad, torch)
+        worst = max(worst, dense_b1)
 
     # -- 4. the serving path: streaming -------------------------------------
     def two_frame(model, device):
@@ -692,24 +934,59 @@ def main():
     gm_bound = bound_ms(
         nbytes(f, rb.idx, rb.valid, w, b, om) + V * w.shape[2] * 4,
         2.0 * int(rb.valid.sum()) * f.shape[1] * w.shape[2])
+    bf16 = torch.bfloat16
     with torch.no_grad():
-        k_us, p_us = plain_vs_kernel_us(
-            lambda: sparse_conv_apply(f, rb, w, b, om, torch.bfloat16),
-            lambda: gather_matmul(f, rb.idx, rb.valid, w, b, om,
-                                  torch.bfloat16), 50, torch)
+        us = graph_us([
+            ("plain", lambda: sparse_conv_apply(f, rb, w, b, om, bf16)),
+            ("kernel", lambda: gather_matmul(f, rb.idx, rb.valid, w, b, om,
+                                             bf16)),
+            ("kernel f32", lambda: gather_matmul(f, rb.idx, rb.valid, w, b,
+                                                 om, torch.float32))],
+            20, torch)
+        k_us, p_us = us["kernel"], us["plain"]
+
+        def b1_host(route=contextlib.nullcontext):
+            with route():
+                return gather_matmul(f, rb.idx, rb.valid, w, b, om, bf16)
+        # launched from the host back to back: the wrapper's cost included
+        host = turns_us([("kernel", b1_host)] + (
+            [] if parent is None else [("parent", lambda: b1_host(parent))]),
+            50, torch)
+        say("[convs] B1 forward, bf16, the 20 convs of frame 0 (device "
+            "time, CUDA graph of 20 calls; the launch's dynamic shared "
+            "memory and cp.async stages)")
+        lib = dma_gather._library()
+
+        def smem(V_, K_, cin, cout):
+            stages = ctypes.c_int(0)
+            n = lib.gather_matmul_shared_bytes(V_, K_, cin, cout,
+                                               ctypes.byref(stages))
+            return f"{n / 1024:5.1f} KB x{stages.value}"
+        frame_ms["gather_matmul"] = time_convs("B1", [
+            (f"conv {i:2d} V={rb_.idx.shape[0]:5d} K={rb_.idx.shape[1]:2d} "
+             f"{f_.shape[1]:2d}->{w_.shape[2]:2d} "
+             f"{smem(*rb_.idx.shape, f_.shape[1], w_.shape[2])}",
+             lambda f_=f_, rb_=rb_, w_=w_, b_=b_, om_=om_: gather_matmul(
+                 f_, rb_.idx, rb_.valid, w_, b_, om_, bf16),
+             gemm_bound((f_, rb_.idx, rb_.valid, w_, b_, om_),
+                        rb_.idx.shape[0], f_.shape[1], w_.shape[2],
+                        int(rb_.valid.sum())))
+            for i, (f_, rb_, w_, b_, om_) in enumerate(calls)], torch, parent)
     say(f"[time] streaming {stream_ms:.3f} ms/scan "
         f"({1e3 / stream_ms:.2f} scans/s), median of 20 after warm-up")
     say(f"[time] two-frame forward {two_ms:.3f} ms, median of 10")
     say(f"[time] L0 subm conv V={V} K={K} Cin={f.shape[1]} "
-        f"Cout={w.shape[2]} bf16: gather_matmul {k_us:.2f} us/call, plain "
-        f"sparse_conv_apply {p_us:.2f} us/call (plain, kernel, kernel, "
-        f"plain; 50 calls each); bound {gm_bound[0] * 1e3:.2f} us "
-        f"({gm_bound[1]})")
+        f"Cout={w.shape[2]} bf16: gather_matmul {k_us:.2f} us/call (f32 "
+        f"mode {us['kernel f32']:.2f}), plain sparse_conv_apply {p_us:.2f} "
+        f"us/call (device time, in turns); bound {gm_bound[0] * 1e3:.2f} us "
+        f"({gm_bound[1]}); launched from the host, 50 calls back to back: "
+        f"gather_matmul {host['kernel']:.2f} us/call" + (
+            "" if parent is None else f", parent {host['parent']:.2f}"))
     kernel_rows = {"gather_matmul": dict(
         source="rslo_tpu_torch/csrc/gather_matmul.cu",
         replaces="rslo_tpu/ops/dma_gather.py:132", max_abs_err=worst,
         ms=k_us / 1e3, plain_ms=p_us / 1e3, bound=gm_bound,
-        library_ms=None)}
+        library_ms=None, host_ms=host["kernel"] / 1e3)}
 
     # -- 6. the band engine, serving ----------------------------------------
     bcfg = cfg.replace(middle=dataclasses.replace(cfg.middle, engine="band"))
@@ -748,7 +1025,7 @@ def main():
             [(f"conv {i:2d}", bc.pad_rows(f_, op.plan.v_in), w_, op.plan)
              for i, (f_, op, w_, _, _) in enumerate(bcalls)], bc, torch)
         say("[band] edge cases")
-        b4_worst = max(b4_worst, check_band_kernels(
+        b4_worst = max(b4_worst, dense_b4, check_band_kernels(
             band_edge_cases(calls[1], bcalls[1][1].plan, bc, sc, torch), bc,
             torch))
 
@@ -757,9 +1034,8 @@ def main():
     f1, op1, w1, _, _ = bcalls[1]             # L0 subm, 16 -> 16
     plan1 = op1.plan
     fp1 = bc.pad_rows(f1, plan1.v_in)
-    bf16 = torch.bfloat16
     with torch.no_grad():
-        us = turns_us([
+        us = graph_us([
             ("B4 plain", lambda: bc.band_conv_plain(fp1, w1, plan1.base,
                                                     plan1.sel, bf16)),
             ("B4", lambda: bc.band_matmul(fp1, w1, plan1.base, plan1.sel,
@@ -769,7 +1045,18 @@ def main():
             ("B5 plain", lambda: bc.band_gather_plain(fp1, plan1.base,
                                                       plan1.sel, bf16)),
             ("B5", lambda: bc.band_gather(fp1, plan1.base, plan1.sel,
-                                          bf16))], 50, torch)
+                                          bf16))], 20, torch)
+        say("[convs] B4 forward, bf16, the 20 band convs of frame 0")
+        frame_ms["band_matmul"] = time_convs("B4", [
+            (f"conv {i:2d} nB={op_.plan.sel.shape[0]:3d} "
+             f"K={op_.plan.sel.shape[1]:2d} {f_.shape[1]:2d}->{w_.shape[2]:2d}",
+             lambda fp_=bc.pad_rows(f_, op_.plan.v_in), w_=w_, p_=op_.plan:
+                 bc.band_matmul(fp_, w_, p_.base, p_.sel, bf16),
+             gemm_bound((bc.pad_rows(f_, op_.plan.v_in), op_.plan.base,
+                         op_.plan.sel, w_), op_.plan.sel.shape[0] *
+                        op_.plan.sel.shape[2], f_.shape[1], w_.shape[2],
+                        band_pairs(op_.plan)))
+            for i, (f_, op_, w_, _, _) in enumerate(bcalls)], torch, parent)
     nB, K1, B1 = plan1.sel.shape
     cin1, cout1 = w1.shape[1], w1.shape[2]
     b4_bound = bound_ms(nbytes(fp1, plan1.base, plan1.sel, w1) +
@@ -786,7 +1073,7 @@ def main():
         f"us/call, plain band_conv_plain {us['B4 plain']:.2f} us/call, "
         f"gather_matmul (B1) at the same conv {us['B1']:.2f} us/call; "
         f"band_gather {us['B5']:.2f} us/call, plain band_gather_plain "
-        f"{us['B5 plain']:.2f} us/call (each in turns, 50 calls a turn); "
+        f"{us['B5 plain']:.2f} us/call (device time, in turns); "
         f"bounds B4 {b4_bound[0] * 1e3:.2f} us ({b4_bound[1]}), B5 "
         f"{b5_bound[0] * 1e3:.2f} us ({b5_bound[1]})")
     for engine, model, cfg_, wall_ms in (("rulebook", net, cfg, stream_ms),
@@ -956,7 +1243,8 @@ def main():
     def fit_and_check(engine, cfg_, train_dir, ops):
         """Trainer.fit for TRAIN_STEPS steps: launches per step against
         the prediction, finite metrics, changed tensors, checkpoint
-        restore.  Returns (trainer, state, summed launches)."""
+        restore.  Returns (trainer, state, summed launches, the initial
+        weights)."""
         shutil.rmtree(train_dir, ignore_errors=True)
         trainer = Trainer(cfg_, train_dir, dev)
         state = trainer.init_state()
@@ -1018,7 +1306,7 @@ def main():
             f"written and restored: step, optimizer count and all tensors "
             f"equal")
         return trainer, state, {k: sum(c[k] for c in per_step)
-                                for k in counted}
+                                for k in counted}, before
 
     rb_ops = [op for _, op, *_ in train_calls]
     band_ops = [op for _, op, *_ in band_train_calls]
@@ -1028,9 +1316,9 @@ def main():
             say(f"[train {engine}] predicted launches per "
                 f"{'warmup' if warm else 'post-warmup'} step: "
                 f"{predicted_launches(ops, cfg_, warm)}")
-    trainer, state, train_launches = fit_and_check(
+    trainer, state, train_launches, initial = fit_and_check(
         "rulebook", tcfg, TRAIN_DIR, rb_ops)
-    btrainer, bstate, band_train_launches = fit_and_check(
+    btrainer, bstate, band_train_launches, _ = fit_and_check(
         "band", btcfg, BAND_TRAIN_DIR, band_ops)
 
     # -- 11. timing of the train path and the backward kernels ---------------
@@ -1062,19 +1350,93 @@ def main():
     ct0 = torch.randn(V0, f0.shape[1], device=dev)
     w_t = train_calls[1][2].to(torch.bfloat16).float().flip(0)
     w_t = w_t.transpose(1, 2).contiguous()
-    dg_k, dg_p = plain_vs_kernel_us(
-        lambda: sparse_conv_dgrad(ct0, op0.rb_t, w_t, torch.bfloat16),
-        lambda: gather_matmul_dgrad(ct0, op0.rb_t.idx, op0.rb_t.valid, w_t,
-                                    torch.bfloat16), 50, torch)
     bop0 = band_train_calls[1][1]                     # L0 subm band plan
     bw_t = band_train_calls[1][2].flip(0).transpose(1, 2).contiguous()
     ct_pad = bc.pad_rows(ct0, bop0.plan.v_in)
-    bd_k, bd_p = plain_vs_kernel_us(
-        lambda: bc.band_conv_plain(ct_pad, bw_t, bop0.plan.base,
-                                   bop0.plan.sel, torch.bfloat16),
-        lambda: bc.band_matmul_dgrad(ct_pad, bw_t, bop0.plan.base,
-                                     bop0.plan.sel, torch.bfloat16),
-        50, torch)
+    with torch.no_grad():
+        us = graph_us([
+            ("B1 dgrad plain", lambda: sparse_conv_dgrad(
+                ct0, op0.rb_t, w_t, bf16)),
+            ("B1 dgrad", lambda: gather_matmul_dgrad(
+                ct0, op0.rb_t.idx, op0.rb_t.valid, w_t, bf16)),
+            ("B4 dgrad plain", lambda: bc.band_conv_plain(
+                ct_pad, bw_t, bop0.plan.base, bop0.plan.sel, bf16)),
+            ("B4 dgrad", lambda: bc.band_matmul_dgrad(
+                ct_pad, bw_t, bop0.plan.base, bop0.plan.sel, bf16))],
+            20, torch)
+        dg_k, dg_p = us["B1 dgrad"], us["B1 dgrad plain"]
+        bd_k, bd_p = us["B4 dgrad"], us["B4 dgrad plain"]
+        say("[convs] B1 feature gradient, bf16, the 19 backward convs of a "
+            "train frame (over the transposed rulebooks)")
+        cases = []
+        for i, (f_, op_, w_, _, _) in enumerate(train_calls):
+            if i == 0:
+                continue                  # its input needs no gradient
+            wt_ = w_.to(bf16).float()
+            wt_ = (wt_.flip(0) if op_.flip_taps else wt_)
+            wt_ = wt_.transpose(1, 2).contiguous()
+            ct_ = torch.randn(op_.rb.idx.shape[0], w_.shape[2], device=dev)
+            rbt = op_.rb_t
+            cases.append((
+                f"conv {i:2d} Vin={rbt.idx.shape[0]:5d} K={rbt.idx.shape[1]:2d}"
+                f" {w_.shape[2]:2d}->{w_.shape[1]:2d}",
+                lambda ct_=ct_, rbt=rbt, wt_=wt_: gather_matmul_dgrad(
+                    ct_, rbt.idx, rbt.valid, wt_, bf16),
+                gemm_bound((ct_, rbt.idx, rbt.valid, wt_), rbt.idx.shape[0],
+                           w_.shape[2], w_.shape[1], int(rbt.valid.sum()))))
+        frame_ms["gather_matmul_dgrad"] = time_convs("B1 dgrad", cases,
+                                                       torch, parent)
+        say("[convs] B4 feature gradient, bf16, the submanifold band plans "
+            "of a train frame")
+        cases = []
+        for i, (f_, op_, w_, _, _) in enumerate(band_train_calls):
+            if i == 0 or not op_.plan.self_transpose:
+                continue
+            p_ = op_.plan
+            wt_ = w_.flip(0).transpose(1, 2).contiguous()
+            ctp = bc.pad_rows(torch.randn(p_.v_out, w_.shape[2], device=dev),
+                              p_.v_in)
+            cases.append((
+                f"conv {i:2d} nB={p_.sel.shape[0]:3d} K={p_.sel.shape[1]:2d} "
+                f"{w_.shape[2]:2d}->{w_.shape[1]:2d}",
+                lambda ctp=ctp, wt_=wt_, p_=p_: bc.band_matmul_dgrad(
+                    ctp, wt_, p_.base, p_.sel, bf16),
+                gemm_bound((ctp, p_.base, p_.sel, wt_),
+                           p_.sel.shape[0] * p_.sel.shape[2], w_.shape[2],
+                           w_.shape[1], band_pairs(p_))))
+        frame_ms["band_matmul_dgrad"] = time_convs("B4 dgrad", cases,
+                                                     torch, parent)
+        d = dense
+        dw_t = d["w"].flip(0).transpose(1, 2).contiguous()
+        dwr_t = dw_t.to(bf16).float()
+        V_d, C_d = d["f"].shape
+        pairs_d = int(d["rb"].valid.sum())
+        say(f"[convs] the dense cube, {V_d} rows, {C_d} -> {C_d}")
+        time_convs("dense", [
+            ("B1 bf16", lambda: gather_matmul(
+                d["f"], d["rb"].idx, d["rb"].valid, d["w"], d["b"], d["om"],
+                bf16), gemm_bound((d["f"], d["rb"].idx, d["rb"].valid,
+                                   d["w"], d["b"], d["om"]), V_d, C_d, C_d,
+                                  pairs_d)),
+            ("B1 f32", lambda: gather_matmul(
+                d["f"], d["rb"].idx, d["rb"].valid, d["w"], d["b"], d["om"],
+                torch.float32), bound_ms(nbytes(
+                    d["f"], d["rb"].idx, d["rb"].valid, d["w"], d["b"],
+                    d["om"]) + V_d * C_d * 4, 2.0 * pairs_d * C_d * C_d,
+                    "f32")),
+            ("B1 dgrad bf16", lambda: gather_matmul_dgrad(
+                d["ct"], d["rb"].idx, d["rb"].valid, dwr_t, bf16),
+             gemm_bound((d["ct"], d["rb"].idx, d["rb"].valid, dwr_t), V_d,
+                        C_d, C_d, pairs_d)),
+            ("B4 bf16", lambda: bc.band_matmul(
+                d["f_pad"], d["w"], d["plan"].base, d["plan"].sel, bf16),
+             gemm_bound((d["f_pad"], d["plan"].base, d["plan"].sel, d["w"]),
+                        V_d, C_d, C_d, band_pairs(d["plan"]))),
+            ("B4 dgrad bf16", lambda: bc.band_matmul_dgrad(
+                d["ct_pad"], dw_t, d["plan"].base, d["plan"].sel, bf16),
+             gemm_bound((d["ct_pad"], d["plan"].base, d["plan"].sel, dw_t),
+                        V_d, C_d, C_d, band_pairs(d["plan"])))],
+            torch, parent)
     n_pairs = sum(int(sm[p].sum()) * int(tm[p].sum())
                   for p in range(src.shape[0]))
     nn_bound = bound_ms(nbytes(src, sm, tgt, tm) + src.shape[0] *
@@ -1099,11 +1461,11 @@ def main():
         f"({rg_bound[1]})")
     say(f"[time] gather_matmul_dgrad L0 subm V={V0} Cout=16 -> Cin=16 "
         f"bf16: kernel {dg_k:.2f} us/call, plain sparse_conv_dgrad "
-        f"{dg_p:.2f} us/call (50 calls each); bound "
+        f"{dg_p:.2f} us/call (device time, in turns); bound "
         f"{dg_bound[0] * 1e3:.2f} us ({dg_bound[1]})")
     say(f"[time] band_matmul_dgrad L0 subm plan, Cout=16 -> Cin=16 bf16: "
         f"kernel {bd_k:.2f} us/call, plain band_conv_plain {bd_p:.2f} "
-        f"us/call (50 calls each); bound {bd_bound[0] * 1e3:.2f} us "
+        f"us/call (device time, in turns); bound {bd_bound[0] * 1e3:.2f} us "
         f"({bd_bound[1]})")
     kernel_rows["gather_matmul_dgrad"] = dict(
         source="rslo_tpu_torch/csrc/gather_matmul.cu",
@@ -1164,20 +1526,35 @@ def main():
     tcfg32 = tcfg.replace(
         middle=dataclasses.replace(tcfg.middle, conv_dtype="f32"),
         odom=dataclasses.replace(tcfg.odom, compute_dtype="fp32"))
-    weights = {k: v.cpu() for k, v in state.model.state_dict().items()}
+    # the seeded initial weights: the trained ones differ from run to run
+    # (4 steps of a chaotic trajectory whose device sums use atomics), and
+    # with them the size of each loss term the check compares
+    weights = {k: v.cpu() for k, v in initial.items()}
     noise_gen = torch.Generator().manual_seed(SEED)
-    jittered = {k: v * (1 + TRAIN_GRAD_NOISE * torch.randn(
-        v.shape, generator=noise_gen)) if v.is_floating_point() else v
-        for k, v in weights.items()}
+
+    def jitter(ws):
+        return {k: v * (1 + TRAIN_GRAD_NOISE * torch.randn(
+            v.shape, generator=noise_gen)) if v.is_floating_point() else v
+            for k, v in ws.items()}
+    jittered = jitter(weights)
     btcfg32 = tcfg32.replace(middle=dataclasses.replace(tcfg32.middle,
                                                         engine="band"))
-    outs = {}
-    for name, device, w, cfg_ in (
-            ("card", dev, weights, tcfg32),
+    cpu = torch.device("cpu")
+    runs = [("card", dev, weights, tcfg32),
             ("card, jittered weights", dev, jittered, tcfg32),
             ("card, band engine", dev, weights, btcfg32),
             ("card, band engine, jittered weights", dev, jittered, btcfg32),
-            ("cpu", torch.device("cpu"), weights, tcfg32)):
+            ("cpu", cpu, weights, tcfg32)]
+    if parent is not None:
+        trained = {k: v.cpu() for k, v in state.model.state_dict().items()}
+        runs += [("card, trained weights", dev, trained, tcfg32),
+                 ("card, trained weights, jittered", dev, jitter(trained),
+                  tcfg32),
+                 ("card, trained weights, the parent's kernels", dev,
+                  trained, tcfg32, parent),
+                 ("cpu, trained weights", cpu, trained, tcfg32)]
+    outs = {}
+    for name, device, w, cfg_, *route in runs:
         model = OdomNet(cfg_).to(device)
         model.load_state_dict(w)
         st = TrainState.create(model, make_optimizer(cfg_, model),
@@ -1185,12 +1562,18 @@ def main():
         batch = {k: torch.as_tensor(v, device=device)
                  for k, v in batches[0].items()}
         t0 = time.perf_counter()
-        out, grads = loss_and_grads(st, batch, cfg_, warmup=False)
+        with (route[0] if route else contextlib.nullcontext)():
+            out, grads = loss_and_grads(st, batch, cfg_, warmup=False)
         outs[name] = ({k: float(v) for k, v in out.aux.items()},
                       {k: g.detach().cpu().double() for k, g in
                        grads.items()})
         say(f"[cpu-ref] f32 train step on the {name}: "
             f"{time.perf_counter() - t0:.2f} s")
+
+    def loss_limit(want):
+        """The loss terms' bound, as np.isclose(got, want, **TRAIN_LOSS_TOL)
+        takes it."""
+        return TRAIN_LOSS_TOL["atol"] + TRAIN_LOSS_TOL["rtol"] * abs(want)
 
     def rel_err(a, b):
         return float((a - b).norm()) / float(b.norm())
@@ -1198,10 +1581,13 @@ def main():
     def compare_steps(tag, what, got, ref, got_jittered):
         """Loss terms to TRAIN_LOSS_TOL; each leaf's gradient to
         TRAIN_GRAD_FACTOR x its measured sensitivity + TRAIN_GRAD_ABS."""
-        (aux_g, g_g), (aux_r, g_r), (_, g_j) = got, ref, got_jittered
+        (aux_g, g_g), (aux_r, g_r), (aux_j, g_j) = got, ref, got_jittered
         for key, want in aux_r.items():
+            lim = loss_limit(want)
             say(f"[{tag}] f32 train {key}: {what} {aux_g[key]:.7g} vs "
-                f"{want:.7g}")
+                f"{want:.7g}, |diff| {abs(aux_g[key] - want) / lim:.3f} of "
+                f"the limit; jittered weights move it by "
+                f"{abs(aux_j[key] - aux_g[key]) / lim:.3f} of the limit")
             if not np.isclose(aux_g[key], want, **TRAIN_LOSS_TOL):
                 fail(f"f32 train step {key}: {what} differ")
         top = max(float(g.norm()) for g in g_r.values())
@@ -1230,6 +1616,22 @@ def main():
     compare_steps("band-ref", "band vs rulebook engine on the card",
                   outs["card, band engine"], outs["card"],
                   outs["card, band engine, jittered weights"])
+    if parent is not None:
+        # a reading, not a check: how far the card is from the CPU at the
+        # trained weights, with either checkout's kernels, against the
+        # change that jittering those weights makes on the card
+        ref = outs["cpu, trained weights"][0]
+        for key, want in ref.items():
+            lim = loss_limit(want)
+            got = {n: outs[f"card, trained weights{s}"][0][key] for n, s in (
+                ("this", ""), ("parent", ", the parent's kernels"),
+                ("jittered", ", jittered"))}
+            say(f"[trained] f32 train {key}: cpu {want:.7g}; |card - cpu| "
+                f"of the limit: this checkout's kernels "
+                f"{abs(got['this'] - want) / lim:.3f}, the parent's "
+                f"{abs(got['parent'] - want) / lim:.3f}; jittered weights "
+                f"move the card's by "
+                f"{abs(got['jittered'] - got['this']) / lim:.3f}")
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     shutil.rmtree(BAND_TRAIN_DIR, ignore_errors=True)
 
@@ -1243,7 +1645,11 @@ def main():
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
                      "bound_by": row["bound"][1],
-                     "library_ms": row["library_ms"]})
+                     "library_ms": row["library_ms"],
+                     # the device times' sum over one frame's convs, for
+                     # the gather-GEMM kernels timed conv by conv
+                     "frame_ms": frame_ms.get(name),
+                     "host_ms": row.get("host_ms")})
     say(json.dumps({"kernels": rows}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

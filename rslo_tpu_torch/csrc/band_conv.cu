@@ -18,31 +18,34 @@
 //
 // rnd() rounds to the compute dtype (bf16 round-to-nearest-even, or keeps
 // f32).  The product of two bf16 values is exact in f32, so B4 and its
-// plain version differ only in the order of their f32 sums; B5 is a copy
-// and bit-equal to its plain version.
+// plain version differ only in the order (and, on the tensor cores, the
+// truncation inside one 16-deep MMA) of their f32 sums; B5 is a copy and
+// bit-equal to its plain version.
 //
 // What bounds them on this card.  B4 reads one feature row per valid
 // (row, tap) pair, 28-256 bytes each, against Cin*Cout multiply-adds per
 // pair: at most 64 x 64 = 4096 per 256-byte row, far below the H100's
-// bf16 ridge point (~295 operations per byte), so the row reads bound it.
-// The features (<= 10.5 MB at L0 in f32) stay in the 50 MB L2.  B5 moves
-// bytes only: the selected rows in, the (Vp, K*Cin) im2col out, which is
-// written whole (zeros included) and dominates.
+// bf16 ridge point (~295 operations per byte), so the row gathers from L2
+// and their latency bound it (the features, <= 10.5 MB at L0 in f32, stay
+// in the 50 MB L2).  B5 moves bytes only: the selected rows in, the
+// (Vp, K*Cin) im2col out, which is written whole (zeros included) and
+// dominates.
 //
 // What the design does about it.  The TPU kernel double-buffered whole
 // (W, Cin) windows into VMEM and selected rows with a one-hot product on
 // the MXU, because the TPU gathers slowly.  Hopper gathers rows cheaply,
 // and a 1280-row window at 64 channels would take 160 KB of shared memory
 // in bf16 and leave one block per SM.  So B4 is the gather-GEMM of
-// csrc/gather_matmul.cu with the plan's (base, sel) in place of a
-// rulebook: one block per tile of 64 output rows; per tap the block reads
-// sel for its rows and skips the tap when no row uses it; only the
-// selected rows are gathered into shared memory, with W[k] beside them;
-// the f32 sums stay in registers across the K taps; the output is written
-// once.  A row behind sel = -1 is never read, so a NaN there cannot reach
-// a sum.  B5 is a grid-stride copy with the output's flat index on the
-// threads, so the writes (its bytes) are coalesced.  wgmma/TMA
-// pipelining, and any use of the band's locality, is later work.
+// csrc/gather_gemm.cuh, shared with B1, with the plan's (base, sel) as its
+// row-source policy: a block of 64 output rows reads base[b, :] and the
+// 64-row slices of sel[b, k, :] once (coalesced; a tile may straddle two
+// plan blocks when B is not a multiple of 64), lists the taps its rows
+// use, gathers the next taps' selected rows and W[k] with cp.async while
+// mma.sync works on the current tap, and writes its rows once.  A row
+// behind sel = -1 is never copied, and the math masks its slot to zero,
+// so a NaN there cannot reach a sum.  Why mma.sync and not wgmma/TMA is in
+// gather_gemm.cuh.  B5 is a grid-stride copy with the output's flat index
+// on the threads, so the writes (its bytes) are coalesced.
 //
 // The submanifold d_features of the band engine is B4 again, run over the
 // same plan with the cotangent as the features and the tap-flipped,
@@ -53,21 +56,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gather_gemm.cuh"
+
 namespace {
 
-constexpr int TILE_V = 64;     // output rows per block of B4
-constexpr int THREADS = 256;
-constexpr int MAX_C = 64;      // widest Cin / Cout taken by B4
-constexpr int ACC = TILE_V * MAX_C / THREADS;   // outputs per thread
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <bool BF16>
-__device__ __forceinline__ float round_operand(float x) {
-  return BF16 ? round_bf16(x) : x;
-}
+constexpr int THREADS = 256;   // threads per block of B5
 
 // Input row of output row v at tap k, or -1 for none.  base and sel come
 // from the plan builder, which keeps base + sel inside [0, Vin); the clamp
@@ -84,76 +77,24 @@ __device__ __forceinline__ int band_source(const int32_t* __restrict__ base,
   return min(max(base[bk] + s, 0), Vin - 1);
 }
 
-template <bool BF16>
-__global__ void __launch_bounds__(THREADS)
-band_matmul_kernel(const float* __restrict__ features,
-                   const int32_t* __restrict__ base,
-                   const int32_t* __restrict__ sel,
-                   const float* __restrict__ weights,
-                   float* __restrict__ out,
-                   int Vin, int Vp, int K, int B, int Cin, int Cout) {
-  __shared__ float g_s[TILE_V * MAX_C];   // gathered rows, [row][cin]
-  __shared__ float w_s[MAX_C * MAX_C];    // W[k], [cin][cout]
-  __shared__ int src_s[TILE_V];           // input row, -1 = no pair
+// B4's row-source policy: the plan's base + sel.  (tap, row) order with
+// the row fastest reads each 64-row slice of sel[b, k, :] contiguously.
+struct BandRows {
+  const int32_t* base;
+  const int32_t* sel;
+  int B;
+  static constexpr bool kTapFastest = false;
+  // B4's feature gradient is B4 itself on the rounded cotangent (MODE_BF16)
+  static constexpr bool kFeatureGradient = false;
 
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * TILE_V;
-  const int rows = min(TILE_V, Vp - row0);
-  const int n_out = rows * Cout;
-
-  float acc[ACC];
-#pragma unroll
-  for (int j = 0; j < ACC; ++j) acc[j] = 0.f;
-
-  for (int k = 0; k < K; ++k) {
-    int used = 0;
-    if (tid < TILE_V) {
-      const int s = tid < rows
-          ? band_source(base, sel, row0 + tid, k, K, B, Vin) : -1;
-      src_s[tid] = s;
-      used = s >= 0;
-    }
-    if (!__syncthreads_or(used)) continue;   // tap empty for the whole tile
-
-    const float* wk = weights + (int64_t)k * Cin * Cout;
-    for (int e = tid; e < Cin * Cout; e += THREADS)
-      w_s[e] = round_operand<BF16>(wk[e]);
-    for (int e = tid; e < rows * Cin; e += THREADS) {
-      const int r = e / Cin;
-      const int c = e - r * Cin;
-      const int s = src_s[r];
-      if (s >= 0) g_s[e] = round_operand<BF16>(features[(int64_t)s * Cin + c]);
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int j = 0; j < ACC; ++j) {
-      const int o = tid + j * THREADS;
-      if (o < n_out) {
-        const int r = o / Cout;
-        const int c = o - r * Cout;
-        if (src_s[r] >= 0) {
-          const float* gr = g_s + r * Cin;
-          float a = acc[j];
-          for (int ci = 0; ci < Cin; ++ci)
-            a = fmaf(gr[ci], w_s[ci * Cout + c], a);
-          acc[j] = a;
-        }
-      }
-    }
-    __syncthreads();
+  __device__ __forceinline__ int source(int v, int k, int K, int Vin) const {
+    const int b = v / B;
+    const int64_t bk = (int64_t)b * K + k;
+    const int s = sel[bk * B + (v - b * B)];
+    const int row = min(max(base[bk] + s, 0), Vin - 1);   // both loads issued
+    return s < 0 ? -1 : row;
   }
-
-#pragma unroll
-  for (int j = 0; j < ACC; ++j) {
-    const int o = tid + j * THREADS;
-    if (o < n_out) {
-      const int r = o / Cout;
-      const int c = o - r * Cout;
-      out[(int64_t)(row0 + r) * Cout + c] = acc[j];
-    }
-  }
-}
+};
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
@@ -184,7 +125,7 @@ band_gather_kernel(const float* __restrict__ features,
 
 extern "C" {
 
-int band_matmul_max_channels() { return MAX_C; }
+int band_matmul_max_channels() { return gather_gemm::MAX_C; }
 
 // All pointers are device pointers.  features (Vin, Cin) f32, base (nB, K)
 // int32, sel (nB, K, B) int32, weights (K, Cin, Cout) f32, out (nB*B, Cout)
@@ -195,23 +136,15 @@ int band_matmul_launch(const void* features, const void* base,
                        int Vin, int nB, int K, int B, int Cin, int Cout,
                        int bf16, void* stream) {
   const int64_t Vp = (int64_t)nB * B;
-  if (Vin <= 0 || nB <= 0 || K <= 0 || B <= 0 || Cin <= 0 || Cout <= 0 ||
-      Cin > MAX_C || Cout > MAX_C || Vp > INT32_MAX)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)((Vp + TILE_V - 1) / TILE_V));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* f = static_cast<const float*>(features);
-  const int32_t* bs = static_cast<const int32_t*>(base);
-  const int32_t* sl = static_cast<const int32_t*>(sel);
-  const float* w = static_cast<const float*>(weights);
-  float* o = static_cast<float*>(out);
-  if (bf16)
-    band_matmul_kernel<true><<<grid, THREADS, 0, s>>>(
-        f, bs, sl, w, o, Vin, (int)Vp, K, B, Cin, Cout);
-  else
-    band_matmul_kernel<false><<<grid, THREADS, 0, s>>>(
-        f, bs, sl, w, o, Vin, (int)Vp, K, B, Cin, Cout);
-  return (int)cudaGetLastError();
+  if (nB <= 0 || B <= 0 || Vp > INT32_MAX) return (int)cudaErrorInvalidValue;
+  const BandRows src{static_cast<const int32_t*>(base),
+                           static_cast<const int32_t*>(sel), B};
+  return gather_gemm::launch(
+      static_cast<const float*>(features), src,
+      static_cast<const float*>(weights), nullptr, nullptr,
+      static_cast<float*>(out), Vin, (int)Vp, K, Cin, Cout,
+      bf16 ? gather_gemm::MODE_BF16 : gather_gemm::MODE_F32,
+      static_cast<cudaStream_t>(stream));
 }
 
 // features (Vin, Cin) f32, base (nB, K) int32, sel (nB, K, B) int32; out

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` has a plain C interface.  At first use it is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library under
 ``build/rslo_tpu_torch/`` at the repository root (listed in
 ``.gitignore``) and loaded with ``ctypes``.  The library's file name
-carries a hash of its source, so an edited kernel is never served from
-a stale build.
+carries a hash of its source, of every ``csrc/*.cuh`` header (which a
+source may include) and of the compiler flags, so an edited kernel or
+header is never served from a stale build.
 """
 from __future__ import annotations
 
@@ -34,9 +35,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = _CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:

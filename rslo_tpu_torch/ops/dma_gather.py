@@ -5,7 +5,8 @@
     ``out[v] = sum_k valid[v,k] * f[idx[v,k]] @ W[k]`` (+ bias, zeroed
     where ``out_mask`` is false), with operands rounded to the compute
     dtype and fp32 sums (``csrc/gather_matmul.cu``, replacing
-    ``dma_gather_matmul``).
+    ``dma_gather_matmul``; its body is the gather-GEMM of
+    ``csrc/gather_gemm.cuh``, shared with the band engine's B4).
   * ``gather_matmul_dgrad`` is the same kernel's feature-gradient mode
     over a transposed rulebook (plain version ``sparse_conv_dgrad``).
   * ``row_gather`` is ``features[idx]`` (``csrc/row_gather.cu``,
@@ -48,6 +49,9 @@ def _library() -> ctypes.CDLL:
     lib.gather_matmul_launch.restype = ctypes.c_int
     lib.gather_matmul_max_channels.argtypes = []
     lib.gather_matmul_max_channels.restype = ctypes.c_int
+    lib.gather_matmul_shared_bytes.argtypes = (
+        [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)])
+    lib.gather_matmul_shared_bytes.restype = ctypes.c_int
     return lib
 
 
