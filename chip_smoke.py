@@ -39,9 +39,16 @@ exits non-zero when it fails):
      their plain versions and against B1 at the same conv; B4 at each of
      the 20 band convs and its frame sum
   7. ``nn_search`` (B3) bit-equal to its plain version at the deployed
-     3 x 20000 x 20000, plus ties, an all-invalid tgt, masked src rows
-     and ragged N, M
+     3 x 20000 x 20000, plus ties, an all-invalid tgt, masked src rows,
+     ragged N, M, and the kernel's own boundaries: ties that straddle its
+     chunks, cluster shares and register blocks, N of 257 and 1, M of 5,
+     1 and 0, invalid tgts exactly on src points
   8. ``row_gather`` (B2) bit-equal to ``features[idx]`` at the L0 im2col
+     and at rows of 1-100 words (every vector width, an int32 array, a
+     misaligned view); its fused d_W im2col mode bit-equal to
+     ``round_operand(torch.where(valid, features[idx], 0))`` at the 20
+     train convs in bf16 and f32, an all-invalid ``valid`` and NaN rows
+     that only invalid taps point at
   9. the sparse conv's backward against torch autograd through the
      plain conv, at the 20 conv calls of one frame, bf16 and f32: on the
      rulebook engine (``gather_matmul_dgrad`` + ``row_gather`` + one f32
@@ -57,9 +64,10 @@ exits non-zero when it fails):
  11. time the train step (both variants, both engines), peak device
      memory, and each backward kernel against its plain version; B1's
      feature gradient at the 19 backward convs and B4's at the
-     submanifold plans, each with its frame sum; the dense case timed
-     (phases 5, 6 and 11 run before 12 and 13, whose CPU threads would
-     share the host)
+     submanifold plans, each with its frame sum; the dense case; the d_W
+     im2col at the 20 train convs, fused ``row_gather`` against the
+     three passes it replaced, with its frame sum (phases 5, 6 and 11
+     run before 12 and 13, whose CPU threads would share the host)
  12. the two-frame forward on the card against the same model on the
      CPU (plain versions), in float32 at the same widths; and the band
      engine against the rulebook engine on the card, in float32
@@ -71,16 +79,18 @@ exits non-zero when it fails):
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
-rate does not enter them.  B2 and B3 are timed over back-to-back calls
-launched from the host (CUDA events), and so is B1 at the L0 conv once
-more (``host_ms``), which keeps the wrapper's host cost in view.
-``--parent DIR`` also builds the gather-GEMM sources of another checkout
+rate does not enter them.  B1 at the L0 conv, B2 and B3 are also timed
+over back-to-back calls launched from the host (CUDA events,
+``host_ms``), which keeps the wrapper's host cost in view.
+``--parent DIR`` also builds the four kernel sources of another checkout
 (``DIR/rslo_tpu_torch/csrc/``, the same C interface) and times them
-against this one at every conv, in turns; and in phase 13 it reads the
-f32 train step at the trained weights (the rulebook trainer's, after
-phases 10 and 11) on the card, with this checkout's kernels and with the
-other's, each against the CPU (printed, not held: the trained weights
-differ from run to run).
+against this one, in turns: the gather-GEMM at every conv, B3 at the
+deployed call, B2 at the L0 im2col and, in its three-pass composition,
+at every d_W im2col; and in phase 13 it reads the f32 train step at the
+trained weights (the rulebook trainer's, after phases 10 and 11) on the
+card, with this checkout's kernels and with the other's, each against
+the CPU (printed, not held: the trained weights differ from run to
+run).
 
 The last two lines of standard output are the kernel summary (JSON)
 and the result (JSON); the card's ``nvidia-smi`` line comes before.
@@ -305,13 +315,6 @@ def event_us(fn, n, torch):
     return start.elapsed_time(end) / n * 1e3
 
 
-def plain_vs_kernel_us(plain, kern, n, torch):
-    """Mean µs per call of each, timed in the order plain, kernel,
-    kernel, plain."""
-    us = turns_us([("plain", plain), ("kernel", kern)], n, torch)
-    return us["kernel"], us["plain"]
-
-
 def turns_us(named, n, torch):
     """Mean µs per call of each (name, fn), timed in turns: the list in
     order, then in reverse."""
@@ -356,13 +359,30 @@ def graph_us(named, n, torch, reps=5):
     return {name: statistics.mean(v) for name, v in us.items()}
 
 
-def load_parent_libraries(parent, _build, dma_gather, bc):
-    """Build ``gather_matmul.cu`` and ``band_conv.cu`` of another
-    checkout (``parent``) and load them with this checkout's C
-    signatures."""
+# the C entry points of each kernel library, as its wrapper loads them
+ENTRY_POINTS = {
+    "gather_matmul": ("gather_matmul_launch", "gather_matmul_max_channels",
+                      "gather_matmul_shared_bytes"),
+    "band_conv": ("band_matmul_launch", "band_gather_launch",
+                  "band_matmul_max_channels"),
+    "row_gather": ("row_gather_launch", "row_gather_fused_launch"),
+    "nn_search": ("nn_search_launch",)}
+
+
+def load_parent_libraries(parent, _build, dma_gather, bc, chamfer):
+    """Build the four kernel sources of another checkout (``parent``)
+    and load them with this checkout's C signatures.  Returns
+    ``routed(*names)``, a context manager inside which the named
+    libraries' wrappers launch the parent's kernels; with no names, every
+    library whose parent build has all of this checkout's entry points
+    (the parent's ``row_gather.cu`` may lack the fused one: its
+    three-pass im2col is then routed by name)."""
     out_dir = os.path.join(REPO, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
-    names = ("gather_matmul", "band_conv")
+    loaders = {"gather_matmul": (dma_gather, "_library"),
+               "band_conv": (bc, "_library"),
+               "row_gather": (dma_gather, "_row_gather_library"),
+               "nn_search": (chamfer, "_library")}
 
     def build(name):
         src = os.path.join(parent, "rslo_tpu_torch", "csrc", f"{name}.cu")
@@ -374,31 +394,38 @@ def load_parent_libraries(parent, _build, dma_gather, bc):
             fail(f"nvcc failed on the parent's {src}:\n{proc.stderr}")
         return lib
 
-    with ThreadPoolExecutor(len(names)) as pool:
-        paths = dict(zip(names, pool.map(build, names)))
-    ours = {"gather_matmul": dma_gather._library(), "band_conv": bc._library()}
-    libs = {}
+    with ThreadPoolExecutor(len(loaders)) as pool:
+        paths = dict(zip(loaders, pool.map(build, loaders)))
+    libs, complete, missing = {}, [], []
     for name, path in paths.items():
+        module, attr = loaders[name]
+        ours = getattr(module, attr)()
         lib = ctypes.CDLL(path)
-        for fn in ("gather_matmul_launch", "gather_matmul_max_channels",
-                   "band_matmul_launch", "band_gather_launch",
-                   "band_matmul_max_channels"):
-            if hasattr(ours[name], fn):
-                getattr(lib, fn).argtypes = getattr(ours[name], fn).argtypes
-                getattr(lib, fn).restype = getattr(ours[name], fn).restype
+        for fn in ENTRY_POINTS[name]:
+            if not hasattr(lib, fn):
+                missing.append(f"{name}.{fn}")
+                continue
+            getattr(lib, fn).argtypes = getattr(ours, fn).argtypes
+            getattr(lib, fn).restype = getattr(ours, fn).restype
+        if not any(m.startswith(f"{name}.") for m in missing):
+            complete.append(name)
         libs[name] = lib
-    say(f"[build] the parent's {', '.join(names)} from {parent}")
+    say(f"[build] the parent's {', '.join(loaders)} from {parent}; "
+        f"missing there: {', '.join(missing) or 'nothing'}")
 
     @contextlib.contextmanager
-    def routed():
-        """The wrappers launch the parent's kernels inside the block."""
-        saved = dma_gather._library, bc._library
-        dma_gather._library = lambda: libs["gather_matmul"]
-        bc._library = lambda: libs["band_conv"]
+    def routed(*names):
+        """The named wrappers launch the parent's kernels inside the
+        block (default: every complete library)."""
+        names = names or tuple(complete)
+        saved = {n: getattr(*loaders[n]) for n in names}
+        for n in names:
+            setattr(*loaders[n], lambda lib=libs[n]: lib)
         try:
             yield
         finally:
-            dma_gather._library, bc._library = saved
+            for n, fn in saved.items():
+                setattr(*loaders[n], fn)
     return routed
 
 
@@ -785,8 +812,8 @@ def overflow_audit(label, geo, band_overflow_counts, share=None):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", help="a checkout whose gather-GEMM kernels "
-                    "are timed against this one's at every conv")
+    ap.add_argument("--parent", help="a checkout whose kernels are timed "
+                    "against this one's, in turns")
     opts = ap.parse_args()
     import numpy as np
     import torch
@@ -829,8 +856,8 @@ def main():
 
     # -- 2. build ---------------------------------------------------------
     build_kernels(_build)
-    parent = (load_parent_libraries(opts.parent, _build, dma_gather, bc)
-              if opts.parent else None)
+    parent = (load_parent_libraries(opts.parent, _build, dma_gather, bc,
+                                    chamfer) if opts.parent else None)
     frame_ms = {}
 
     # -- 3. kernel vs plain at the main path's 20 conv calls --------------
@@ -1165,8 +1192,51 @@ def main():
     _, i = nn_search(src, sm, tgt_dup, tm_dup)
     if ((i >= half) & (i < 2 * half)).any():
         fail("nn_search: a tie must go to the lowest index")
+    # the kernel's own boundaries: every tgt repeated each 997 rows (its
+    # copies straddle the 32-tgt chunks, the cluster's tgt shares and,
+    # with src points on them, every register slot and src tile); N not
+    # a multiple of the 256-point src tile; M below the cluster's 8
+    # blocks; M = 0; invalid tgts placed exactly on src points
+    Np, Mp = src.shape[1], tgt.shape[1]
+    ar_m = torch.arange(Mp, device=dev)
+    tgt_per = tgt[:, ar_m % 997].contiguous()
+    tm_all = torch.ones_like(tm)
+    src_on = src.clone()
+    src_on[:, ::2] = tgt_per[:, (torch.arange(0, Np, 2, device=dev) * 7919)
+                             % 997]
+    tgt_inv = tgt.clone()
+    tm_inv = tm.clone()
+    k_inv = min(Mp, Np) // 2
+    tgt_inv[:, :k_inv] = src[:, 0:2 * k_inv:2]
+    tm_inv[:, :k_inv] = False
+    for what, args in (
+            ("periodic tgt, src on tgt points (ties across chunks, shares "
+             "and register blocks)", (src_on, sm, tgt_per, tm_all)),
+            ("N 257", (src[:, :257].contiguous(), sm[:, :257].contiguous(),
+                       tgt, tm)),
+            ("N 1", (src[:, :1].contiguous(), sm[:, :1].contiguous(), tgt,
+                     tm)),
+            ("M 5", (src, sm, tgt[:, :5].contiguous(),
+                     tm_all[:, :5].contiguous())),
+            ("M 1", (src, sm, tgt[:, :1].contiguous(),
+                     tm_all[:, :1].contiguous())),
+            ("M 0", (src, sm, tgt[:, :0].contiguous(),
+                     tm[:, :0].contiguous())),
+            ("invalid tgts on src points", (src, sm, tgt_inv, tm_inv))):
+        d, i = check_nn_search(torch, nn_search, nn_search_plain, *args)
+        say(f"[nn_search] edge case {what}: bit-equal")
+        if what.startswith("periodic") and (
+                (i[:, ::2] >= 997) | (d[:, ::2] != 0))[sm[:, ::2]].any():
+            fail("nn_search: a src point on a repeated tgt point must get "
+                 "its first copy at distance 0")
+        if what == "M 0" and not ((d == float(np.float32(chamfer.BIG))) &
+                                  (i == 0)).all():
+            fail("nn_search: M = 0 must give (BIG, 0)")
+        if what.startswith("invalid") and (
+                (i < k_inv) & (d < float(np.float32(chamfer.BIG))))[sm].any():
+            fail("nn_search: an invalid tgt on a src point was selected")
 
-    # -- 8. B2 row_gather bit-equal to features[idx] ------------------------
+    # -- 8. B2 row_gather bit-equal to features[idx]; its fused mode -------
     tnet = OdomNet(tcfg, torch.Generator().manual_seed(SEED)).to(dev)
     tnet.train()
     train_calls = capture_conv_calls(tnet, lambda: tnet.frame_features(
@@ -1188,8 +1258,65 @@ def main():
             fail(f"row_gather took the out-of-range index {bad}")
         except IndexError:
             pass
-    say(f"[row_gather] L0 im2col {tuple(got.shape)}: bit-equal to "
-        f"features[idx]; out-of-range indices raise")
+    # every vector width: 4-, 8- and 16-byte rows and lanes, a row of
+    # 64 words, an int32 array, and a 16-byte row at a 4-byte offset
+    gen8 = torch.Generator(device=dev).manual_seed(SEED)
+    ridx = torch.randint(0, 5000, (100003,), generator=gen8, device=dev,
+                         dtype=torch.int32)
+    widths = []
+    for C in (1, 2, 3, 4, 7, 16, 64, 100):
+        widths.append((f"C={C}", torch.randn(5000, C, generator=gen8,
+                                             device=dev)))
+    widths.append(("int32 C=16", torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                               (5000, 16), generator=gen8,
+                                               device=dev,
+                                               dtype=torch.int32)))
+    widths.append(("C=16 at a 4-byte offset", torch.randn(
+        5000 * 16 + 1, generator=gen8, device=dev)[1:].view(5000, 16)))
+    for what, feats in widths:
+        if not torch.equal(bits(row_gather(feats, ridx), torch),
+                           bits(feats[ridx.long()], torch)):
+            fail(f"row_gather != features[idx] at {what}")
+    say(f"[row_gather] L0 im2col {tuple(got.shape)} and rows of "
+        f"{', '.join(w for w, _ in widths)}: bit-equal to features[idx]; "
+        f"out-of-range indices raise")
+
+    def im2col_plain(f_, idx_, valid_, dt):
+        """The fused mode's plain version: the composition it replaces."""
+        return sc.round_operand(torch.where(
+            valid_[:, None], f_[idx_.long()], 0.0), dt)
+
+    fused_cases = []
+    for i, (f_, op_, *_) in enumerate(train_calls):
+        fused_cases.append((f"conv {i:2d}", f_.contiguous(),
+                            op_.rb.idx.reshape(-1),
+                            op_.rb.valid.reshape(-1)))
+    fl, ol = train_calls[1][0].contiguous(), train_calls[1][1]
+    nan_row = fl.shape[0]
+    f_nan = torch.cat([fl, torch.full_like(fl[:1], float("nan"))])
+    v_l = ol.rb.valid.reshape(-1)
+    fused_cases += [
+        ("conv  1, all-invalid valid", fl, ol.rb.idx.reshape(-1),
+         torch.zeros_like(v_l)),
+        ("conv  1, NaN rows behind invalid taps", f_nan,
+         torch.where(v_l, ol.rb.idx.reshape(-1), nan_row).to(torch.int32),
+         v_l)]
+    for what, f_, idx_, valid_ in fused_cases:
+        for dt in (bf16, torch.float32):
+            got_f = row_gather(f_, idx_, check=False, valid=valid_,
+                               compute_dtype=dt)
+            want_f = im2col_plain(f_, idx_, valid_, dt)
+            if not torch.equal(bits(got_f, torch), bits(want_f, torch)):
+                fail(f"fused row_gather != round(where(valid, f[idx], 0)) "
+                     f"at {what} ({dt})")
+            if "all-invalid" in what and bits(got_f, torch).any():
+                fail("fused row_gather: an all-invalid valid must give +0.0")
+    del got_f, want_f, fused_cases, f_nan, widths   # phase 11's peak memory
+    say(f"[row_gather] fused d_W im2col bit-equal to round_operand("
+        f"torch.where(valid, features[idx], 0)) in bf16 and f32 at the 20 "
+        f"train convs (conv 0: {train_calls[0][0].shape[1]} channels, "
+        f"{train_calls[0][0].shape[1] * 4}-byte rows), an all-invalid "
+        f"valid and NaN rows behind invalid taps")
 
     # -- 9. the sparse conv's backward against autograd ----------------------
     btcfg = tcfg.replace(middle=dataclasses.replace(tcfg.middle,
@@ -1340,13 +1467,37 @@ def main():
             f"warm-up step each); peak device memory "
             f"{peak_mib[engine]:.1f} MiB, {peak_mib[engine] - live_mib:.1f} "
             f"MiB above the {live_mib:.1f} MiB live before the steps")
-    nn_k, nn_p = plain_vs_kernel_us(
-        lambda: nn_search_plain(src, sm, tgt, tm),
-        lambda: chamfer._launch(src, sm, tgt, tm), 10, torch)
-    rg = turns_us([
-        ("plain", lambda: f0[idx0]),
-        ("kernel", lambda: dma_gather._launch_row_gather(f0, idx0)),
-        ("library", lambda: torch.index_select(f0, 0, idx0))], 50, torch)
+    def on_parent(name, fn):
+        """``fn`` with the parent's ``name`` library routed in."""
+        def run():
+            with parent(name):
+                return fn()
+        return run
+
+    def with_parent(name, fn):
+        return [] if parent is None else [("parent", on_parent(name, fn))]
+
+    def nn_new():
+        return chamfer._launch(src, sm, tgt, tm)
+
+    def rg_new():
+        return dma_gather._launch_row_gather(f0, idx0)
+    with torch.no_grad():
+        # device time (CUDA graphs) in turns with the parent's kernel;
+        # the plain version, ~40 ms a call, in a graph of 2 calls
+        nn = graph_us([("kernel", nn_new)] + with_parent("nn_search", nn_new),
+                      10, torch)
+        nn.update(graph_us([("plain", lambda: nn_search_plain(
+            src, sm, tgt, tm))], 2, torch, reps=2))
+        rg = graph_us([
+            ("plain", lambda: f0[idx0]), ("kernel", rg_new),
+            ("library", lambda: torch.index_select(f0, 0, idx0))]
+            + with_parent("row_gather", rg_new), 20, torch)
+    # launched from the host back to back: the wrapper's cost included
+    nn_host = turns_us([("kernel", nn_new)] + with_parent("nn_search",
+                                                          nn_new), 10, torch)
+    rg_host = turns_us([("kernel", rg_new)] + with_parent("row_gather",
+                                                          rg_new), 50, torch)
     ct0 = torch.randn(V0, f0.shape[1], device=dev)
     w_t = train_calls[1][2].to(torch.bfloat16).float().flip(0)
     w_t = w_t.transpose(1, 2).contiguous()
@@ -1406,6 +1557,45 @@ def main():
                            w_.shape[1], band_pairs(p_))))
         frame_ms["band_matmul_dgrad"] = time_convs("B4 dgrad", cases,
                                                      torch, parent)
+        say("[convs] d_W im2col, bf16, the 20 train convs: the fused "
+            "row_gather against row_gather + torch.where + round_operand "
+            "(three passes, as the parent's sparse_conv_grads ran them)"
+            + ("" if parent is None else
+               ", with this checkout's and with the parent's row_gather"))
+        im2col = {}
+        for i, (f_, op_, *_) in enumerate(train_calls):
+            f_ = f_.contiguous()
+            idx_, val_ = op_.rb.idx.reshape(-1), op_.rb.valid.reshape(-1)
+
+            def three_pass(f_=f_, idx_=idx_, val_=val_):
+                g = dma_gather._launch_row_gather(f_, idx_)
+                return sc.round_operand(torch.where(val_[:, None], g, 0.0),
+                                        bf16)
+            us = graph_us([
+                ("three-pass", three_pass),
+                ("fused", lambda f_=f_, idx_=idx_, val_=val_: row_gather(
+                    f_, idx_, check=False, valid=val_, compute_dtype=bf16))]
+                + with_parent("row_gather", three_pass), 20, torch)
+            for k, v in us.items():
+                im2col[k] = im2col.get(k, 0.0) + v / 1e3
+            bnd = bound_ms(nbytes(f_, idx_, val_) +
+                           idx_.numel() * f_.shape[1] * 4)
+            V_, K_ = op_.rb.idx.shape
+            say(f"  im2col conv {i:2d} V={V_:5d} K={K_:2d} Cin={f_.shape[1]:2d}"
+                f" ({float(val_.float().mean()):.3f} of taps valid): fused "
+                f"{us['fused']:8.2f} us, three-pass {us['three-pass']:8.2f} "
+                f"us ({us['three-pass'] / us['fused']:.2f}x)" + (
+                    "" if parent is None else
+                    f", parent three-pass {us['parent']:8.2f} us "
+                    f"({us['parent'] / us['fused']:.2f}x)")
+                + f"; bound {bnd[0] * 1e3:7.2f} us ({bnd[1]})")
+        frame_ms["row_gather"] = im2col["fused"]
+        say(f"[convs] d_W im2col: frame sum fused {im2col['fused']:.4f} ms, "
+            f"three-pass {im2col['three-pass']:.4f} ms" + (
+                "" if parent is None else
+                f", parent three-pass {im2col['parent']:.4f} ms "
+                f"({im2col['fused'] / im2col['parent']:.3f} of it)")
+            + " over 20 convs")
         d = dense
         dw_t = d["w"].flip(0).transpose(1, 2).contiguous()
         dwr_t = dw_t.to(bf16).float()
@@ -1450,15 +1640,28 @@ def main():
         nbytes(ct_pad, bop0.plan.base, bop0.plan.sel, bw_t) +
         bnB * bB * bw_t.shape[2] * 4,
         2.0 * band_pairs(bop0.plan) * bw_t.shape[1] * bw_t.shape[2])
+    # the distances' 8 rounded ops (3 sub, 3 mul, 2 add) may not fuse, so
+    # they issue one by one: the half-rate floor beside the bound
+    nn_floor = 8.0 * n_pairs / (PEAK_FLOPS["f32"] / 2) * 1e3
     say(f"[time] nn_search P={src.shape[0]} N={src.shape[1]} "
-        f"M={tgt.shape[1]}: kernel {nn_k:.2f} us/call, plain {nn_p:.2f} "
-        f"us/call (plain, kernel, kernel, plain; 10 calls each); bound "
-        f"{nn_bound[0] * 1e3:.2f} us ({nn_bound[1]}, {n_pairs} valid pairs)")
+        f"M={tgt.shape[1]}: kernel {nn['kernel']:.2f} us/call" + (
+            "" if parent is None else
+            f", parent {nn['parent']:.2f} ({nn['parent'] / nn['kernel']:.2f}x)")
+        + f", plain {nn['plain']:.2f} us/call (device time, in turns); "
+        f"launched from the host: kernel {nn_host['kernel']:.2f} us/call" + (
+            "" if parent is None else f", parent {nn_host['parent']:.2f}")
+        + f"; bound {nn_bound[0] * 1e3:.2f} us ({nn_bound[1]}, {n_pairs} "
+        f"valid pairs), unfused-op floor {nn_floor * 1e3:.2f} us")
     say(f"[time] row_gather L0 im2col {tuple(got.shape)}: kernel "
-        f"{rg['kernel']:.2f} us/call, plain features[idx] {rg['plain']:.2f} "
-        f"us/call, torch.index_select {rg['library']:.2f} us/call (in "
-        f"turns, 50 calls each); bound {rg_bound[0] * 1e3:.2f} us "
-        f"({rg_bound[1]})")
+        f"{rg['kernel']:.2f} us/call" + (
+            "" if parent is None else
+            f", parent {rg['parent']:.2f} ({rg['parent'] / rg['kernel']:.2f}x)")
+        + f", plain features[idx] {rg['plain']:.2f} us/call, "
+        f"torch.index_select {rg['library']:.2f} us/call (device time, in "
+        f"turns); launched from the host: kernel {rg_host['kernel']:.2f} "
+        f"us/call" + ("" if parent is None else
+                      f", parent {rg_host['parent']:.2f}")
+        + f"; bound {rg_bound[0] * 1e3:.2f} us ({rg_bound[1]})")
     say(f"[time] gather_matmul_dgrad L0 subm V={V0} Cout=16 -> Cin=16 "
         f"bf16: kernel {dg_k:.2f} us/call, plain sparse_conv_dgrad "
         f"{dg_p:.2f} us/call (device time, in turns); bound "
@@ -1476,11 +1679,12 @@ def main():
         source="rslo_tpu_torch/csrc/row_gather.cu",
         replaces="rslo_tpu/ops/dma_gather.py:62", max_abs_err=0.0,
         ms=rg["kernel"] / 1e3, plain_ms=rg["plain"] / 1e3, bound=rg_bound,
-        library_ms=rg["library"] / 1e3)
+        library_ms=rg["library"] / 1e3, host_ms=rg_host["kernel"] / 1e3)
     kernel_rows["nn_search"] = dict(
         source="rslo_tpu_torch/csrc/nn_search.cu",
         replaces="rslo_tpu/ops/chamfer.py:109", max_abs_err=0.0,
-        ms=nn_k / 1e3, plain_ms=nn_p / 1e3, bound=nn_bound, library_ms=None)
+        ms=nn["kernel"] / 1e3, plain_ms=nn["plain"] / 1e3, bound=nn_bound,
+        library_ms=None, host_ms=nn_host["kernel"] / 1e3)
     kernel_rows["band_matmul_dgrad"] = dict(
         source="rslo_tpu_torch/csrc/band_conv.cu",
         replaces="rslo_tpu/ops/band_conv.py:222",
@@ -1647,7 +1851,8 @@ def main():
                      "bound_by": row["bound"][1],
                      "library_ms": row["library_ms"],
                      # the device times' sum over one frame's convs, for
-                     # the gather-GEMM kernels timed conv by conv
+                     # the kernels timed conv by conv (row_gather: the
+                     # fused d_W im2col)
                      "frame_ms": frame_ms.get(name),
                      "host_ms": row.get("host_ms")})
     say(json.dumps({"kernels": rows}))

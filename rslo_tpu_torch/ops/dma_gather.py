@@ -10,7 +10,8 @@
   * ``gather_matmul_dgrad`` is the same kernel's feature-gradient mode
     over a transposed rulebook (plain version ``sparse_conv_dgrad``).
   * ``row_gather`` is ``features[idx]`` (``csrc/row_gather.cu``,
-    replacing ``dma_row_gather``).
+    replacing ``dma_row_gather``); its fused mode writes the d_W im2col
+    (invalid taps zeroed, rounded to the compute dtype) in one pass.
   * ``sparse_conv`` is the differentiable conv: a
     ``torch.autograd.Function`` whose backward is the two kernels above
     plus one f32 matrix product, equal to JAX's autodiff of
@@ -61,6 +62,9 @@ def _row_gather_library() -> ctypes.CDLL:
     lib.row_gather_launch.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
     lib.row_gather_launch.restype = ctypes.c_int
+    lib.row_gather_fused_launch.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    lib.row_gather_fused_launch.restype = ctypes.c_int
     return lib
 
 
@@ -200,12 +204,20 @@ gather_matmul_dgrad.launches = 0
 
 
 def row_gather(features: torch.Tensor, idx: torch.Tensor,
-               check: bool = True) -> torch.Tensor:
+               check: bool = True, valid: Optional[torch.Tensor] = None,
+               compute_dtype=None) -> torch.Tensor:
     """``features[idx]`` for features (Vin, C) of a 4-byte dtype and idx
     (N,) int32 in [0, Vin); out-of-range indices raise.  ``check=False``
     skips that range check (and its device sync) for indices that are in
-    range by construction, as a rulebook's are.  Launches
-    ``csrc/row_gather.cu`` on a CUDA tensor (counted in
+    range by construction, as a rulebook's are.
+
+    With ``valid`` ((N,) bool) or ``compute_dtype`` (torch.bfloat16 or
+    torch.float32) it is the sparse conv's d_W im2col in one pass:
+    ``round_operand(torch.where(valid[:, None], features[idx], 0),
+    compute_dtype)`` for float32 features (``valid`` None: every row;
+    ``compute_dtype`` None: float32, no rounding).  A row whose valid is
+    False is written as zeros (the kernel does not read its feature
+    row).  Launches ``csrc/row_gather.cu`` on a CUDA tensor (counted in
     ``row_gather.launches``)."""
     if features.dim() != 2 or features.element_size() != 4:
         raise ValueError(f"features must be (Vin, C) of a 4-byte dtype, "
@@ -217,6 +229,21 @@ def row_gather(features: torch.Tensor, idx: torch.Tensor,
         raise ValueError("row_gather operands lie on different devices")
     N = idx.shape[0]
     Vin, C = features.shape
+    fused = valid is not None or compute_dtype is not None
+    if fused:
+        compute_dtype = compute_dtype or torch.float32
+        if features.dtype != torch.float32:
+            raise ValueError(f"the fused im2col takes float32 features, got "
+                             f"{features.dtype}")
+        if compute_dtype not in _COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of "
+                             f"{_COMPUTE_DTYPES}, got {compute_dtype}")
+        if valid is not None and (tuple(valid.shape) != (N,) or
+                                  valid.dtype != torch.bool or
+                                  valid.device != features.device):
+            raise ValueError(f"valid must be ({N},) bool on "
+                             f"{features.device}, got {tuple(valid.shape)} "
+                             f"{valid.dtype} on {valid.device}")
     if N and check:
         lo, hi = (int(v) for v in torch.aminmax(idx))
         if lo < 0 or hi >= Vin:
@@ -224,14 +251,20 @@ def row_gather(features: torch.Tensor, idx: torch.Tensor,
                              f"min {lo}, max {hi}")
     dev = features.device
     if dev.type == "cpu":
-        return features[idx]
-    require_cuda(dev, "row_gather", (features, idx))
-    return _launch_row_gather(features, idx)
+        g = features[idx]
+        if valid is not None:
+            g = torch.where(valid[:, None], g, 0.0)
+        return round_operand(g, compute_dtype) if fused else g
+    require_cuda(dev, "row_gather",
+                 [t for t in (features, idx, valid) if t is not None])
+    return _launch_row_gather(features, idx, valid, compute_dtype)
 
 
-def _launch_row_gather(features: torch.Tensor,
-                       idx: torch.Tensor) -> torch.Tensor:
-    """The kernel launch of ``row_gather``, after its checks."""
+def _launch_row_gather(features: torch.Tensor, idx: torch.Tensor,
+                       valid: Optional[torch.Tensor] = None,
+                       compute_dtype=None) -> torch.Tensor:
+    """The kernel launch of ``row_gather``, after its checks: the fused
+    im2col when ``valid`` or ``compute_dtype`` is given."""
     N = idx.shape[0]
     Vin, C = features.shape
     dev = features.device
@@ -239,10 +272,16 @@ def _launch_row_gather(features: torch.Tensor,
     if N == 0 or C == 0:
         return out
     lib = _row_gather_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.row_gather_launch(
-            features.data_ptr(), idx.data_ptr(), out.data_ptr(), N, C,
-            torch.cuda.current_stream(dev).cuda_stream)
+        if valid is None and compute_dtype is None:
+            err = lib.row_gather_launch(features.data_ptr(), idx.data_ptr(),
+                                        out.data_ptr(), N, C, stream)
+        else:
+            err = lib.row_gather_fused_launch(
+                features.data_ptr(), idx.data_ptr(),
+                None if valid is None else valid.data_ptr(), out.data_ptr(),
+                N, C, int(compute_dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"row_gather kernel launch failed: CUDA error "
                            f"{err} (N={N}, C={C})")
@@ -309,8 +348,8 @@ def sparse_conv_grads(features: torch.Tensor, weights: torch.Tensor,
     """(d_features, d_W) of ``gather_matmul`` for the output cotangent
     ``ct`` (already zeroed where ``out_mask`` is false); either is None
     when not needed.  d_features runs ``gather_matmul_dgrad`` over
-    ``rulebook_t``; d_W is ``row_gather``'s im2col times ``ct`` in one
-    f32 product, rounded to the compute dtype (see ``_SparseConv``)."""
+    ``rulebook_t``; d_W is ``row_gather``'s fused im2col times ``ct`` in
+    one f32 product, rounded to the compute dtype (see ``_SparseConv``)."""
     d_feat = d_w = None
     if need_features:
         w_t = round_operand(weights, compute_dtype)
@@ -323,13 +362,13 @@ def sparse_conv_grads(features: torch.Tensor, weights: torch.Tensor,
         V, K = rulebook.idx.shape
         Cin = features.shape[1]
         # rulebook rows lie in [0, Vin) by construction (the slot-map
-        # lookup clamps them)
+        # lookup clamps them); one pass gathers, zeroes the invalid taps
+        # and rounds to the compute dtype
         g = row_gather(features.contiguous(), rulebook.idx.reshape(-1),
-                       check=False)
-        g = torch.where(rulebook.valid.reshape(-1, 1), g, 0.0)
-        g = round_operand(g.reshape(V, K * Cin), compute_dtype)
+                       check=False, valid=rulebook.valid.reshape(-1),
+                       compute_dtype=compute_dtype)
         with f32_matmul():
-            d_w = g.t() @ ct
+            d_w = g.reshape(V, K * Cin).t() @ ct
         d_w = round_operand(d_w, compute_dtype).reshape(K, Cin, -1)
     return d_feat, d_w
 

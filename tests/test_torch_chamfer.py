@@ -1,8 +1,13 @@
 """Port the chamfer NN search (rslo_tpu_torch.ops.chamfer) against the
 JAX package's Pallas kernel ``nn_search_pallas`` run in interpret mode,
 as tests/test_chamfer.py runs it, and against a numpy argmin, with ties
-(lowest index wins), an all-invalid tgt, masked src rows, and shapes
-that are not tile multiples (the JAX side pads them to its tiles).
+(lowest index wins), an all-invalid tgt, masked src rows, shapes that
+are not tile multiples (the JAX side pads them to its tiles), and the
+cases that the CUDA kernel's design rests on: tied copies that straddle
+its 32-tgt chunks and its cluster's tgt shares, an invalid tgt (staged
+there as +inf) on the same spot as a valid one, fewer tgts than the
+cluster has blocks, and coordinates whose squares exceed BIG or
+overflow.
 
 Indices are bit-equal to both.  Distances are bit-equal to numpy's
 evaluation of the contract, ((dx*dx + dy*dy) + dz*dz) + penalty, with
@@ -43,8 +48,9 @@ def numpy_nn(src, sm, tgt, tm):
     first index at the minimum, (BIG, 0) for masked src or no valid
     tgt."""
     diff = src[:, None, :] - tgt[None]
-    d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
-    d = d + diff[..., 2] * diff[..., 2]
+    with np.errstate(over="ignore"):       # squares past f32's range
+        d = diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+        d = d + diff[..., 2] * diff[..., 2]
     d = d + np.where(tm, np.float32(0), np.float32(BIG))[None]
     d = np.minimum(d, np.float32(BIG)) if d.size else \
         np.full((len(src), 1), np.float32(BIG))
@@ -57,7 +63,9 @@ def numpy_nn(src, sm, tgt, tm):
 
 
 def _case(name, rng):
-    N, M = {"ragged": (333, 517), "square": (256, 256)}.get(name, (200, 150))
+    N, M = {"ragged": (333, 517), "square": (256, 256),
+            "dup_chunks": (300, 700), "few_tgt": (100, 5)}.get(name,
+                                                               (200, 150))
     src = (rng.normal(size=(N, 3)) * 4).astype(np.float32)
     tgt = (rng.normal(size=(M, 3)) * 4).astype(np.float32)
     sm = rng.random(N) < 0.9
@@ -73,10 +81,36 @@ def _case(name, rng):
         tm[:] = False
     elif name == "masked_src":
         sm[::3] = False
+    elif name == "dup_chunks":
+        # every tgt point repeated each 97 rows, so its copies straddle
+        # every 32-tgt chunk and every cluster share (96 tgts here) of
+        # the kernel; src points on tgt points tie ~7 copies at 0
+        tgt[:] = tgt[np.arange(M) % 97]
+        tm[:] = True
+        src[:100] = tgt[rng.integers(0, 97, 100)]
+    elif name == "invalid_on_valid":
+        # tgt 2k (invalid) and 2k+1 (valid) on one spot, src k there:
+        # the valid one wins; src 50-79 sit on invalid tgts 100-129
+        tm[:] = True
+        tgt[1:100:2] = tgt[0:100:2]
+        tm[0:100:2] = False
+        src[:50] = tgt[0:100:2]
+        tm[100:130] = False
+        src[50:80] = tgt[100:130]
+        sm[:80] = True
+    elif name == "large":
+        # squares near BIG (1e28-1e29), past it (src 0-19: every distance
+        # >= BIG, so (BIG, 0)) and past f32's range (tgt 0-9: +inf)
+        src *= np.float32(2.5e13)
+        tgt *= np.float32(2.5e13)
+        src[:20] = np.float32(3e15)
+        tgt[:10] = np.float32(1e20)
+        sm[:20] = True
     return src, sm, tgt, tm
 
 
-CASES = ["ragged", "square", "ties", "all_invalid_tgt", "masked_src"]
+CASES = ["ragged", "square", "ties", "all_invalid_tgt", "masked_src",
+         "dup_chunks", "invalid_on_valid", "large", "few_tgt"]
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -98,8 +132,18 @@ def test_nn_search_matches_pallas_and_numpy(name):
     if name == "masked_src":
         assert (d.numpy()[~sm] == np.float32(BIG)).all()
         assert (i.numpy()[~sm] == 0).all()
-    if name == "ties":
+    if name in ("ties", "dup_chunks"):
         assert (d.numpy()[:50][sm[:50]] == 0).all()
+    if name == "dup_chunks":                     # the first copy wins
+        assert (i.numpy()[:100][sm[:100]] < 97).all()
+    if name == "invalid_on_valid":
+        np.testing.assert_array_equal(i.numpy()[:50],
+                                      np.arange(1, 100, 2))
+        assert (d.numpy()[:50] == 0).all() and (d.numpy()[50:80] > 0).all()
+    if name == "large":
+        assert (d.numpy()[:20] == np.float32(BIG)).all()
+        assert (i.numpy()[:20] == 0).all()
+        assert (d.numpy()[20:][sm[20:]] < np.float32(BIG)).all()
 
 
 def test_pair_batch_and_chunking():

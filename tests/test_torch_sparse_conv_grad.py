@@ -3,7 +3,9 @@ sparse_conv, row_gather, and the transposed rulebooks of
 models.middle.build_geometry) against the JAX package:
 
   * ``row_gather`` bit-equal to the Pallas kernel ``dma_row_gather`` run
-    in interpret mode;
+    in interpret mode, and its fused d_W im2col mode bit-equal to that
+    kernel followed by ``jnp.where`` and the rounding to the compute
+    dtype, the composition that JAX's conv differentiates;
   * the transposed rulebooks bit-equal to the JAX package's own
     ``build_inverse_index`` / ``build_conv_index`` on the same levels, and
     each the exact transpose of its forward rulebook;
@@ -74,6 +76,81 @@ def test_row_gather_bit_equal_to_pallas():
     for bad in (-1, 500):
         with pytest.raises(IndexError):
             row_gather(tt(feats), torch.tensor([0, bad], dtype=torch.int32))
+
+
+def _pallas_gather(feats, idx, block=64):
+    pad = (-len(idx)) % block                       # Pallas needs blocks
+    out = dma_row_gather(jnp.asarray(feats),
+                         jnp.asarray(np.pad(idx, (0, pad))), block=block,
+                         inflight=4, interpret=True)
+    return out[:len(idx)]
+
+
+@pytest.mark.parametrize("cin", [7, 16])
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+def test_fused_im2col_bit_equal_to_pallas(precision, cin):
+    """round(where(valid, features[idx], 0)) in one call, at the first
+    conv's 7 channels (28-byte rows) and at 16; NaN rows that only
+    invalid taps point at, a run of all-invalid rows, and values on bf16
+    rounding ties."""
+    rng = np.random.default_rng(3)
+    feats = rng.normal(size=(500, cin)).astype(np.float32)
+    # exact ties between two bf16 neighbours: nearest even decides
+    feats[3, :4] = 1 + np.array([2.0 ** -8, 3 * 2.0 ** -8, -2.0 ** -9,
+                                 -3 * 2.0 ** -9], np.float32)
+    feats[11] = np.nan
+    idx = rng.integers(0, 500, 1200).astype(np.int32)
+    valid = rng.random(1200) < 0.3
+    valid[100:200] = False                          # all-invalid rows
+    idx[idx == 11] = 12
+    idx[::9] = 11                                   # NaN rows ...
+    valid[::9] = False                              # ... behind invalid taps
+    idx[5:20:3] = 3
+    valid[5:20:3] = True
+    cdt = {"f32": (torch.float32, jnp.float32),
+           "bf16": (torch.bfloat16, jnp.bfloat16)}[precision]
+    ref = jnp.where(jnp.asarray(valid)[:, None],
+                    _pallas_gather(feats, idx), 0.0)
+    ref = np.asarray(ref.astype(cdt[1]).astype(jnp.float32))
+    out = row_gather(tt(feats), tt(idx), valid=tt(valid),
+                     compute_dtype=cdt[0])
+    assert out.dtype == torch.float32 and out.shape == (1200, cin)
+    np.testing.assert_array_equal(out.numpy().view(np.uint32),
+                                  ref.view(np.uint32))
+    assert np.isfinite(ref).all() and (ref[~valid] == 0).all()
+    if precision == "bf16":
+        np.testing.assert_array_equal(ref[5, :4], [1, 1 + 2.0 ** -6, 1,
+                                                   1 - 2.0 ** -7])
+    # compute_dtype alone rounds every row; valid alone only zeroes
+    both = row_gather(tt(feats), tt(idx), compute_dtype=cdt[0])
+    np.testing.assert_array_equal(
+        both.numpy(), torch.from_numpy(feats[idx]).to(cdt[0]).float())
+    only = row_gather(tt(feats), tt(idx), valid=tt(valid))
+    np.testing.assert_array_equal(
+        only.numpy(), np.where(valid[:, None], feats[idx], 0.0))
+
+
+def test_row_gather_rejects_bad_fused_operands():
+    feats = torch.zeros(10, 4)
+    idx = torch.arange(6, dtype=torch.int32)
+    ok = torch.ones(6, dtype=torch.bool)
+    for bad in (torch.ones(7, dtype=torch.bool),     # wrong length
+                torch.ones(6, 1, dtype=torch.bool),  # wrong rank
+                torch.ones(6, dtype=torch.uint8),    # wrong dtype
+                torch.ones(6)):
+        with pytest.raises(ValueError):
+            row_gather(feats, idx, valid=bad)
+    with pytest.raises(ValueError):
+        row_gather(feats, idx, valid=ok, compute_dtype=torch.float16)
+    with pytest.raises(ValueError):                  # rounding needs f32
+        row_gather(feats.int(), idx, valid=ok)
+    with pytest.raises(IndexError):                  # checked as before
+        row_gather(feats, torch.tensor([0, 10], dtype=torch.int32),
+                   valid=torch.tensor([True, False]))
+    out = row_gather(feats + 1, torch.tensor([0, 9], dtype=torch.int32),
+                     valid=torch.tensor([True, False]),
+                     compute_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(out.numpy(), [[1] * 4, [0] * 4])
 
 
 def _pairs(rb, flip=False):
