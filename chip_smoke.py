@@ -5,9 +5,10 @@
 Builds the port's CUDA kernels from ``rslo_tpu_torch/csrc/`` and drives
 its main paths with seeded random weights: the serving path,
 ``StreamingOdometry``, at the full width of ``configs/kitti_eval_ours.json``,
-and the self-supervised train step, ``Trainer.fit``, at the full width
-of ``configs/kitti_train_ours.json``, each on the rulebook engine and on
-the band engine (``middle.engine="band"`` with the schema's band
+the self-supervised train step, ``Trainer.fit``, at the full width
+of ``configs/kitti_train_ours.json``, and the evaluation of the trained
+checkpoints through the CLI's ``evaluate`` verb, each on the rulebook
+engine and on the band engine (``middle.engine="band"`` with the schema's band
 defaults: block 256, windows (384, 1280, 768), min_channels 0, so every
 one of the 20 convs of a frame gets a band plan).  Phases (each one
 exits non-zero when it fails):
@@ -21,9 +22,9 @@ exits non-zero when it fails):
      solid cube of 32^3 active voxels (~25 of 27 taps valid per row) at
      64 -> 64, where B1 and B4 (forward and feature gradient, bf16 and
      f32) are held against their plain versions
-  4. stream 8 synthetic KITTI-scale scans: finite poses, exactly 20
-     kernel launches per scan, pose after scan 2 == the two-frame
-     forward
+  4. stream 8 synthetic KITTI-scale scans: finite poses, exactly 14
+     kernel launches per scan (streaming skips the covariance decoder's
+     6 convs), pose after scan 2 == the two-frame forward
   5. time streaming, the two-frame forward and the kernel vs its plain
      version; B1's device time at each of the 20 convs and its frame sum
   6. band engine, serving: the overflow audit (every plan's overflow
@@ -33,7 +34,7 @@ exits non-zero when it fails):
      (an overflow-heavy tiny-window plan, a plan block of 100 rows,
      all-invalid ``sel``, a ragged V, NaN rows that only ``sel = -1``
      would point at); 8 scans through
-     ``StreamingOdometry``: exactly 20 B4 and 0 ``gather_matmul``
+     ``StreamingOdometry``: exactly 14 B4 and 0 ``gather_matmul``
      launches per scan, pose after scan 2 == the two-frame forward;
      timing of streaming, the two-frame forward, and B4 and B5 against
      their plain versions and against B1 at the same conv; B4 at each of
@@ -76,6 +77,17 @@ exits non-zero when it fails):
      loss terms (each beside the change that weights jittered by 1e-7
      make on the card) and per-leaf gradients; and the band engine's f32
      step against the rulebook engine's on the card
+ 14. evaluate: ``rslo_tpu_torch.cli.main(["evaluate", ...])`` in this
+     process, with no ``--device`` (the default, the card), on the
+     synthetic val split of ``configs/kitti_eval_ours.json`` from phase
+     10's checkpoints: 16 windows on the rulebook engine, 8 on the band
+     engine (a copy of the config with ``middle.engine="band"``);
+     ``eval_results.json`` written with the JAX package's keys, finite
+     frame-level metrics, exactly 28 launches of the engine's conv
+     kernel per window (2 frames x 14, the covariance decoder skipped)
+     and none of any other, and window 0's odometry == the checkpoint's
+     two-frame forward on the same collated points; its frames/s and
+     ms/window are printed
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -142,6 +154,19 @@ BWD_REL_TOL = {"bf16": 2.0 ** -8, "f32": KERNEL_REL_TOL}
 BAND_BWD_REL_TOL = {"bf16": 2.0 ** -7, "f32": KERNEL_REL_TOL}
 # streaming vs two-frame: the same kernels on the same inputs
 POSE_TOL = dict(rtol=1e-5, atol=1e-5)
+# sparse convs a frame without the covariance decoder (streaming, eval)
+ENCODER_CONVS = 14
+# phase 14: windows evaluated on each engine
+EVAL_WINDOWS = {"rulebook": 16, "band": 8}
+# the JAX package's run_eval result keys (rslo_tpu/eval/runner.py)
+EVAL_KEYS = {
+    "_meta": ["windows", "elapsed_s", "frames_per_s"],
+    "seq_00": ["ate_rmse_m", "t_rel_pct", "r_rel_deg_per_100m",
+               "t_rmse_pct", "r_rmse_deg_per_100m", "segments",
+               "speed_bins", "n_segments", "segments_scaled",
+               "frame_t_err_m", "frame_q_err_deg"],
+    "avg": ["t_rel_pct", "r_rel_deg_per_100m", "ate_rmse_m",
+            "frame_t_err_m", "frame_q_err_deg"]}
 # card (kernel, cuDNN f32 without TF32) vs CPU (plain versions), f32:
 # ~40 layers whose f32 sums are taken in different orders; held as
 # max |card - cpu| <= CPU_TOL * max |cpu| for each output
@@ -463,18 +488,18 @@ def time_convs(label, cases, torch, parent=None):
     return total["new"]
 
 
-def profile_pushes(stream, scans, torch):
-    """``torch.profiler`` over one push per scan: device ms and device
-    ops per push, and the device ops with the most device time (the
-    profiler's own host cost makes its wall time no measure of a push).
-    Returns None when the trace holds no device events."""
+def profile_device(calls, torch):
+    """``torch.profiler`` over the calls: device ms and device ops per
+    call, and the device ops with the most device time (the profiler's
+    own host cost makes its wall time no measure of a call).  Returns
+    None when the trace holds no device events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for scan in scans:
-            stream.push(scan)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
     ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not ops:
@@ -483,11 +508,12 @@ def profile_pushes(stream, scans, torch):
     for e in ops:
         us, n = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    device_ms = sum(us for us, _ in by_name.values()) / 1e3 / len(scans)
+    n_calls = len(calls)
+    device_ms = sum(us for us, _ in by_name.values()) / 1e3 / n_calls
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     return dict(device_ms=device_ms,
-                ops=len(ops) / len(scans),
-                top=[(name[:60], us / 1e3 / len(scans), n / len(scans))
+                ops=len(ops) / n_calls,
+                top=[(name[:60], us / 1e3 / n_calls, n / n_calls)
                      for name, (us, n) in top])
 
 
@@ -810,6 +836,114 @@ def overflow_audit(label, geo, band_overflow_counts, share=None):
     return saturated
 
 
+def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
+                       reset_counts, counts, prepare_example, vcfg, dev,
+                       smi_line, np, torch):
+    """Phase 14 on one engine: the CLI's evaluate verb, in this process
+    and with its default device, on ``model_dir``'s latest checkpoint;
+    every eval step is recorded (its launches, and window 0's odometry
+    and batch).  Returns the launches of the whole run."""
+    windows = EVAL_WINDOWS[engine]
+    cfg_path = os.path.join(model_dir, "eval_config.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+    steps = []
+    eval_fn = Trainer.eval_fn
+
+    def recording_eval_fn(self, with_cov=False):
+        step = eval_fn(self, with_cov)
+
+        def run(batch):
+            before = counts()
+            out = step(batch)
+            after = counts()
+            steps.append(({k: after[k] - before[k] for k in after}, out,
+                          batch if not steps else None))
+            return out
+        return run
+    Trainer.eval_fn = recording_eval_fn
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(["evaluate", "--config", cfg_path, "--model_dir", model_dir,
+                  "--synthetic", "--max_windows", str(windows)])
+    finally:
+        Trainer.eval_fn = eval_fn
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = counts()
+    with open(os.path.join(model_dir, "eval_results.json")) as fh:
+        res = json.load(fh)
+    keys = {k: list(v) for k, v in res.items()}
+    if keys != EVAL_KEYS:
+        fail(f"evaluate {engine}: eval_results.json keys {keys} != "
+             f"{EVAL_KEYS}")
+    if res["_meta"]["windows"] != windows or len(steps) != windows:
+        fail(f"evaluate {engine}: {res['_meta']['windows']} windows in the "
+             f"results, {len(steps)} eval steps, expected {windows}")
+    frame = {f"{s_}/{k}": res[s_][k] for s_ in ("seq_00", "avg")
+             for k in ("frame_t_err_m", "frame_q_err_deg")}
+    if not all(math.isfinite(v) for v in frame.values()):
+        fail(f"evaluate {engine}: non-finite frame-level metrics {frame}")
+    want = dict.fromkeys(counted, 0)
+    want[kernel] = 2 * ENCODER_CONVS
+    bad = [i for i, (c, _, _) in enumerate(steps) if c != want]
+    if bad:
+        fail(f"evaluate {engine}: window {bad[0]} launched "
+             f"{steps[bad[0]][0]}, expected {want}")
+    if total != {k: n * windows for k, n in want.items()}:
+        fail(f"evaluate {engine}: the run launched {total}, expected "
+             f"{windows} x {want}")
+    # window 0 against the checkpoint's two-frame forward (the
+    # covariance decoder on) on the same collated points
+    tr = Trainer(cfg, model_dir, dev)
+    tr.init_state()
+    batch = steps[0][2]
+    ex = prepare_example(batch["points"][0].to(dev),
+                         batch["point_mask"][0].to(dev), vcfg,
+                         mean_mode=True)
+    with torch.no_grad():
+        two = tr.net.eval()(ex)["odometry"].cpu().numpy()
+    got = steps[0][1][0].cpu().numpy()
+    say(f"[evaluate {engine}] window 0 odometry "
+        f"{np.array2string(got[0], precision=6, max_line_width=200)} vs "
+        f"the two-frame forward "
+        f"{np.array2string(two[0], precision=6, max_line_width=200)}; "
+        f"max |diff| "
+        f"{np.abs(got - two).max():.3e}")
+    if got.shape != two.shape or not np.allclose(got, two, **POSE_TOL):
+        fail(f"evaluate {engine}: window 0 != the two-frame forward")
+    # the eval step alone on window 0's batch, as run_eval calls it
+    # (the batch already collated; ends in the one copy back); and its
+    # device work with and without the covariance decoder
+    step = tr.eval_fn()
+    step_ms = median_ms(lambda: step(batch).cpu(), 10, torch)
+    step_cov = tr.eval_fn(with_cov=True)
+    for what, fn in (("covariance decoder skipped", step),
+                     ("covariance decoder on", step_cov)):
+        prof = profile_device([lambda: fn(batch)] * 4, torch)
+        if prof is None:
+            say(f"[profile] evaluate {engine}: the trace holds no device "
+                f"events")
+            break
+        say(f"[profile] evaluate {engine}, eval step, {what}: "
+            f"{prof['device_ms']:.3f} ms/window of device work in "
+            f"{prof['ops']:.0f} device ops, against "
+            f"{step_ms:.3f} ms/window of host clock")
+    meta = res["_meta"]
+    ms_window = meta["elapsed_s"] / max(windows - 1, 1) * 1e3
+    say(f"[evaluate {engine}] {windows} windows, {want[kernel]} {kernel} "
+        f"launches each and no other kernel; frame-level errors "
+        f"{res['avg']['frame_t_err_m']:.4f} m, "
+        f"{res['avg']['frame_q_err_deg']:.4f} deg")
+    say(f"[time] evaluate {engine}: {meta['frames_per_s']:.3f} frames/s, "
+        f"{ms_window:.3f} ms/window after the warm-up window (run_eval's "
+        f"clock); the eval step alone {step_ms:.3f} ms/window (median of "
+        f"10, host clock); the whole CLI run {run_s:.2f} s; {smi_line}")
+    tr.logger.close()
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose kernels are timed "
@@ -914,7 +1048,7 @@ def main():
             return model(ex)
 
     def stream_and_check(label, model, cfg_, kernel):
-        """Stream the scans, the counts set to 0 just before: exactly 20
+        """Stream the scans, the counts set to 0 just before: exactly 14
         launches of ``kernel`` per scan and none of any other, finite
         poses, and the pose after scan 2 equal to the two-frame
         forward."""
@@ -928,7 +1062,7 @@ def main():
         say(f"[{label}] {N_SCANS} scans, launches {got}; last pose "
             f"{np.array2string(poses[-1], precision=5)}")
         want = dict.fromkeys(counted, 0)
-        want[kernel] = 20 * N_SCANS
+        want[kernel] = ENCODER_CONVS * N_SCANS
         if got != want:
             fail(f"{label}: launches {got} != {want}")
         if poses.shape != (N_SCANS, 7) or not np.isfinite(poses).all():
@@ -1109,7 +1243,8 @@ def main():
         st = StreamingOdometry(model, cfg_, dev)
         for scan in frames[:3]:               # warm-up
             st.push(scan)
-        prof = profile_pushes(st, frames[3:7], torch)
+        prof = profile_device([lambda scan=scan: st.push(scan)
+                               for scan in frames[3:7]], torch)
         if prof is None:
             say(f"[profile] {engine} streaming: the trace holds no device "
                 f"events")
@@ -1421,7 +1556,9 @@ def main():
             f"{fit_s:.2f} s (first step included); all "
             f"{len(after) - n_stats} parameters and {n_stats} running "
             f"statistics changed")
-        restored = Trainer(cfg_, train_dir, dev).init_state()
+        restorer = Trainer(cfg_, train_dir, dev)
+        restored = restorer.init_state()
+        restorer.logger.close()
         diff = [k for k, v in after.items()
                 if not torch.equal(v, restored.model.state_dict()[k])]
         if (diff or restored.step != TRAIN_STEPS or
@@ -1836,6 +1973,21 @@ def main():
                 f"{abs(got['parent'] - want) / lim:.3f}; jittered weights "
                 f"move the card's by "
                 f"{abs(got['jittered'] - got['this']) / lim:.3f}")
+
+    # -- 14. evaluate: the CLI's evaluate verb from phase 10's checkpoints --
+    from rslo_tpu_torch import cli
+    eval_launches = dict.fromkeys(counted, 0)
+    for engine, model_dir, kernel in (
+            ("rulebook", TRAIN_DIR, "gather_matmul"),
+            ("band", BAND_TRAIN_DIR, "band_matmul")):
+        got_launches = evaluate_and_check(
+            engine, model_dir, kernel, bcfg if engine == "band" else cfg,
+            cli, Trainer, counted, reset_counts, counts, prepare_example,
+            vcfg, dev, smi_line, np, torch)
+        for k, n in got_launches.items():
+            eval_launches[k] += n
+    trainer.logger.close()
+    btrainer.logger.close()
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     shutil.rmtree(BAND_TRAIN_DIR, ignore_errors=True)
 
@@ -1850,6 +2002,8 @@ def main():
                      "plain_ms": row["plain_ms"], "bound_ms": row["bound"][0],
                      "bound_by": row["bound"][1],
                      "library_ms": row["library_ms"],
+                     # launches in phase 14's evaluations, both engines
+                     "eval_launches": eval_launches[name],
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the
                      # fused d_W im2col)

@@ -1,8 +1,9 @@
 """Streaming odometry runner with per-frame feature caching
 (counterpart of ``rslo_tpu/eval/streaming.py``).
 
-Each incoming scan is voxelized and encoded ONCE; its BEV features pair
-with the cached previous frame's features for the motion prediction.
+Each incoming scan is voxelized and encoded ONCE, without the
+covariance decoder (14 sparse convs); its BEV features pair with the
+cached previous frame's features for the motion prediction.
 """
 from __future__ import annotations
 
@@ -34,7 +35,7 @@ class StreamingOdometry:
                              mean_mode=True)
         return self.net.frame_features(ex["voxel_features"][0],
                                        ex["coords"][0],
-                                       ex["voxel_mask"][0])
+                                       ex["voxel_mask"][0], with_cov=False)
 
     @torch.no_grad()
     def push(self, points: np.ndarray,

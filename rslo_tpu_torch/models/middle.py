@@ -48,7 +48,8 @@ class FrameGeometry(NamedTuple):
     levels: tuple          # L0 (full res) .. L4 (z-collapsed)
     sub_rb: tuple          # submanifold rulebooks for L0..L3
     down_rb: tuple         # strided-conv rulebooks L0->L1 .. L3->L4
-    inv_rb: tuple          # inverse rulebooks L2->L1, L1->L0
+    inv_rb: tuple          # inverse rulebooks L2->L1, L1->L0 (() when
+                           # built with inverse=False)
     # transposes of down_rb (inverse rulebooks L1->L0 .. L4->L3), for
     # the backward; None unless built with transposed=True
     down_rb_t: Optional[tuple] = None
@@ -68,12 +69,14 @@ DOWN_SPECS = (
 
 def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
                    capacities, lookup: Optional[str] = None,
-                   transposed: bool = False) -> FrameGeometry:
+                   transposed: bool = False,
+                   inverse: bool = True) -> FrameGeometry:
     """coords: (V, 3) zyx int32; sparse_shape: (nz, ny, nx) with the +1
     on z applied; capacities: per-level caps (L4 reuses the L3 one).
     Lookups go through dense slot maps (``lookup`` None or
     "slot_map").  ``transposed`` also builds the rulebooks the backward
-    needs (and L4's slot map, which they look up)."""
+    needs (and L4's slot map, which they look up); ``inverse=False``
+    skips the covariance decoder's inverse rulebooks."""
     if lookup not in (None, "slot_map"):
         raise NotImplementedError(
             f"plan_lookup={lookup!r} is not ported; only 'slot_map'")
@@ -90,8 +93,11 @@ def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
         down_rb.append(sc.build_conv_index(levels[-1], nxt, k, s, p))
         levels.append(nxt)
     sub_rb = tuple(sc.build_submanifold_index(lv) for lv in levels[:4])
-    inv_rb = (sc.build_inverse_index(levels[2], levels[1], *DOWN_SPECS[1]),
-              sc.build_inverse_index(levels[1], levels[0], *DOWN_SPECS[0]))
+    inv_rb = ()
+    if inverse:
+        inv_rb = (
+            sc.build_inverse_index(levels[2], levels[1], *DOWN_SPECS[1]),
+            sc.build_inverse_index(levels[1], levels[0], *DOWN_SPECS[0]))
     down_rb_t = None
     if transposed:
         down_rb_t = tuple(
@@ -108,7 +114,8 @@ def build_band_geometry(coords: torch.Tensor, mask: torch.Tensor,
                         block: int = 256, channels=None,
                         min_channels: int = 0,
                         lookup: Optional[str] = None,
-                        transposed: bool = False) -> FrameGeometry:
+                        transposed: bool = False,
+                        inverse: bool = True) -> FrameGeometry:
     """Rulebook geometry with its rulebooks wrapped into band plans
     (``ops.band_conv``): subm ones with ``windows[0]`` (self-transpose
     plans), strided ones with ``windows[1]``, inverse ones with
@@ -116,9 +123,10 @@ def build_band_geometry(coords: torch.Tensor, mask: torch.Tensor,
     given, a rulebook whose widest conv is narrower than
     ``min_channels`` stays a raw rulebook.  ``transposed`` (training)
     keeps the rulebook geometry, with its transposed rulebooks, in
-    ``raw``."""
+    ``raw``; ``inverse=False`` builds no inverse rulebook or plan."""
     geo = build_geometry(coords, mask, sparse_shape, capacities,
-                         lookup=lookup, transposed=transposed)
+                         lookup=lookup, transposed=transposed,
+                         inverse=inverse)
     sw, dw, iw = windows
     ch = (min_channels,) * 4 if channels is None else tuple(channels)
     # widest conv through each rulebook (encoder + cov decoder reuse)
@@ -137,8 +145,8 @@ def build_band_geometry(coords: torch.Tensor, mask: torch.Tensor,
                 for i, rb in enumerate(geo.sub_rb))
     down = tuple(wrap(rb, lv[i].capacity, dw, down_w[i])
                  for i, rb in enumerate(geo.down_rb))
-    inv = (wrap(geo.inv_rb[0], lv[2].capacity, iw, inv_w[0]),
-           wrap(geo.inv_rb[1], lv[1].capacity, iw, inv_w[1]))
+    inv = tuple(wrap(rb, lv[2 - i].capacity, iw, inv_w[i])
+                for i, rb in enumerate(geo.inv_rb))
     return FrameGeometry(geo.levels, sub, down, inv,
                          raw=geo if transposed else None)
 
@@ -291,10 +299,12 @@ class SparseMiddleCov(nn.Module):
             self.add_module(f"MaskedBatchNorm_{i}", m)
             self._norms.append(m)
 
-    def forward(self, voxel_features: torch.Tensor, geo: FrameGeometry):
+    def forward(self, voxel_features: torch.Tensor, geo: FrameGeometry,
+                with_cov: bool = True):
         """voxel_features: (V0, F) per-voxel features aligned with the
         frame's voxel stream.  Returns (bev (ny, nx, nz*C),
-        cov (V0, 7))."""
+        cov (V0, 7)); ``with_cov=False`` skips the covariance decoder
+        (6 of the 20 convs, and its BNs) and returns None for cov."""
         plan = _RulebookPlan(geo)
         convs = iter(self._convs)
         norms = iter(self._norms)
@@ -325,6 +335,8 @@ class SparseMiddleCov(nn.Module):
         x = block(x, 3, 3)
         x = norm_relu(conv(x, plan.down(3), 4), 4)
         bev = plan.to_bev(x)
+        if not with_cov:
+            return bev, None
 
         # covariance decoder: inverse convs back to full res, always BN
         y = norm_relu(conv(x_mid, plan.inv(0), 1), 1, always=True)

@@ -90,9 +90,10 @@ class OdomNet(nn.Module):
             if name.startswith("Conv_"):
                 mod.bias.copy_(identity_pose_bias())
 
-    def _middle_geometry(self, coords, vmask):
+    def _middle_geometry(self, coords, vmask, with_cov: bool = True):
         """Per-frame sparse geometry of the configured engine, with the
-        transposed rulebooks when training needs gradients."""
+        transposed rulebooks when training needs gradients and the
+        inverse ones when the covariance decoder runs."""
         m = self.cfg.middle
         grad = self.training and torch.is_grad_enabled()
         if m.engine == "band":
@@ -100,18 +101,21 @@ class OdomNet(nn.Module):
                 coords, vmask, self.sparse_shape, m.level_capacities,
                 windows=tuple(m.band_windows), block=m.band_block,
                 channels=tuple(m.channels), min_channels=m.band_min_channels,
-                lookup=m.plan_lookup, transposed=grad)
+                lookup=m.plan_lookup, transposed=grad, inverse=with_cov)
         return build_geometry(coords, vmask, self.sparse_shape,
                               m.level_capacities, lookup=m.plan_lookup,
-                              transposed=grad)
+                              transposed=grad, inverse=with_cov)
 
-    def forward(self, example: Dict[str, Any]) -> dict:
+    def forward(self, example: Dict[str, Any],
+                with_cov: bool = True) -> dict:
         """example (single sample, no batch dim), as prepare_example
         emits in mean mode:
           voxel_features: (L, V, F) float
           coords:         (L, V, 3) int32 zyx (-1 padding)
           voxel_mask:     (L, V) bool
-        Returns the prediction dict (pair-major tensors)."""
+        Returns the prediction dict (pair-major tensors);
+        ``with_cov=False`` skips the covariance decoder and leaves
+        ``voxel_covs`` out."""
         if "voxel_features" not in example:
             raise NotImplementedError(
                 "only mean-mode examples (voxel_features) are ported")
@@ -121,23 +125,26 @@ class OdomNet(nn.Module):
         bevs, covs, feats = [], [], []
         for t in range(L):
             f = example["voxel_features"][t]
-            bev, cov = self.frame_features(f, coords[t], vmask[t])
+            bev, cov = self.frame_features(f, coords[t], vmask[t],
+                                           with_cov)
             bevs.append(bev[None])
             covs.append(cov)
             feats.append(f)
         x1, x2 = cycle_pairs(bevs)
         preds = self.bev_net(torch.cat([x1, x2], dim=-1))
         preds["voxel_features"] = feats        # list[L] of (V, F)
-        preds["voxel_covs"] = covs             # list[L] of (V, 7)
+        if with_cov:
+            preds["voxel_covs"] = covs         # list[L] of (V, 7)
         preds["voxel_masks"] = [vmask[t] for t in range(L)]
         preds["seq_length"] = L
         return preds
 
-    def frame_features(self, voxel_features, coords, vmask):
+    def frame_features(self, voxel_features, coords, vmask,
+                       with_cov: bool = True):
         """Encode one frame: (V, F) features + coords -> (BEV (H, W, C),
-        cov (V, 7))."""
-        return self.middle(voxel_features,
-                           self._middle_geometry(coords, vmask))
+        cov (V, 7), or None with ``with_cov=False``)."""
+        geo = self._middle_geometry(coords, vmask, with_cov)
+        return self.middle(voxel_features, geo, with_cov)
 
     def pair_predict(self, bev_prev, bev_new) -> dict:
         """Predict the motion from the previous frame to the new one

@@ -1,10 +1,13 @@
 """Single-card training loop (counterpart of
 ``rslo_tpu/train/loop.py``): state from the seed or the latest
-checkpoint, then the step loop with the host-side warmup switch and
-periodic checkpoints.  TensorBoard logging, warm-start surgery and the
-CLI verb are not ported; metrics are kept in ``Trainer.history``."""
+checkpoint, then the step loop with the host-side warmup switch,
+periodic checkpoints and an eval hook.  Metrics go to ``Trainer.logger``
+(text, json-lines, TensorBoard events) and are kept in
+``Trainer.history``.  Warm-start surgery and the CLI ``train`` verb are
+not ported."""
 from __future__ import annotations
 
+import functools
 import time
 from pathlib import Path
 from typing import Iterable, Optional
@@ -14,10 +17,11 @@ import torch
 from ..config.schema import PipelineCfg
 from ..convert import is_flax_kernel
 from ..models.net import OdomNet
+from ..utils.logging import MetricLogger
 from .checkpoint import CheckpointManager
 from .optim import build_optimizer
 from .state import TrainState
-from .step import train_step
+from .step import eval_step, train_step
 
 
 def device_prefetch(batches: Iterable[dict], device):
@@ -44,26 +48,45 @@ class Trainer:
         self.model_dir = Path(model_dir)
         self.device = torch.device(device)
         self.self_supervised = self_supervised
+        self.logger = MetricLogger(model_dir)
         self.ckpt = CheckpointManager(str(self.model_dir / "ckpt"),
                                       cfg.train.checkpoint_max_keep)
         self.history = []        # (step, {metric: float})
+        self.net = None
         self.optimizer = None
 
     def init_state(self, ckpt_step: Optional[int] = None) -> TrainState:
         """A fresh state from ``cfg.train.seed``, or the checkpoint at
         ``ckpt_step`` (the latest one when there is any)."""
         gen = torch.Generator().manual_seed(self.cfg.train.seed)
-        net = OdomNet(self.cfg, gen).to(self.device).train()
-        self.optimizer = make_optimizer(self.cfg, net)
+        self.net = OdomNet(self.cfg, gen).to(self.device).train()
+        n_params = sum(p.numel() for p in self.net.parameters())
+        self.logger.log_text(f"model initialized: {n_params / 1e6:.2f}M "
+                             f"params")
+        self.optimizer = make_optimizer(self.cfg, self.net)
         state = TrainState.create(
-            net, self.optimizer,
+            self.net, self.optimizer,
             {"rot": self.cfg.loss.rotation_init_alpha,
              "trans": self.cfg.loss.translation_init_alpha})
         restored = self.ckpt.restore(state, step=ckpt_step)
-        return state if restored is None else restored
+        if restored is None:
+            return state
+        self.logger.log_text(f"restored checkpoint at step {restored.step}")
+        return restored
+
+    def eval_fn(self, with_cov: bool = False):
+        """``train.step.eval_step`` bound to this trainer's net, config
+        and device: collated batch -> odometry (1, P, 7)."""
+        if self.net is None:
+            raise RuntimeError("Trainer.eval_fn needs init_state first")
+        return functools.partial(eval_step, self.net, cfg=self.cfg,
+                                 device=self.device, with_cov=with_cov)
 
     def fit(self, train_iter: Iterable[dict], state: TrainState,
-            max_steps: Optional[int] = None) -> TrainState:
+            eval_hook=None, max_steps: Optional[int] = None) -> TrainState:
+        """Train up to ``max_steps`` (``cfg.train.steps`` by default);
+        every ``steps_per_eval`` steps save a checkpoint, then call
+        ``eval_hook(trainer, state, step)``."""
         cfg = self.cfg.train
         total = max_steps or cfg.steps
         t_last = time.time()
@@ -83,8 +106,11 @@ class Trainer:
                                       max(cfg.display_step, 1) * 1e3)
                 t_last = time.time()
                 self.history.append((step_i, row))
+                self.logger.log_metrics(row, step_i)
             if step_i % cfg.steps_per_eval == 0:
                 self.ckpt.save(step_i, state)
+                if eval_hook is not None:
+                    eval_hook(self, state, step_i)
             elif (cfg.checkpoint_interval and
                   step_i % cfg.checkpoint_interval == 0):
                 self.ckpt.save(step_i, state)

@@ -1,5 +1,5 @@
-"""One train step on one card (counterpart of
-``rslo_tpu/train/step.py::make_train_step``).
+"""One train step and one eval step on one card (counterparts of
+``rslo_tpu/train/step.py::make_train_step`` and ``make_eval_step``).
 
 The batch holds raw padded points; voxelization runs on the device
 inside the step.  The warmup phase (identity-R consistency and the
@@ -20,14 +20,15 @@ from .state import TrainState
 
 def prepare_batch(batch: Dict[str, torch.Tensor],
                   cfg: PipelineCfg) -> Dict[str, torch.Tensor]:
-    """Raw batch {"points" (L, N, F), "point_mask" (L, N), "odometry"
-    (P, 7)} -> the model's mean-mode example."""
+    """Raw batch {"points" (L, N, F), "point_mask" (L, N), and for
+    training "odometry" (P, 7)} -> the model's mean-mode example."""
     if not mean_vfe_ok(cfg):
         raise NotImplementedError(
             f"VFE {cfg.vfe.name!r} is not ported; only the mean VFE")
     example = prepare_example(batch["points"], batch["point_mask"],
                               voxelizer_config(cfg), mean_mode=True)
-    example["odometry"] = batch["odometry"]
+    if "odometry" in batch:
+        example["odometry"] = batch["odometry"]
     return example
 
 
@@ -67,3 +68,35 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                                           state.opt_state)
     state.step += 1
     return state, metrics
+
+
+def eval_step(net: torch.nn.Module, batch: Dict[str, object],
+              cfg: PipelineCfg, device="cuda", with_cov: bool = False):
+    """The collated batch of one sample, {"points" (1, L, N, F),
+    "point_mask" (1, L, N)} (numpy or tensors), -> odometry float32
+    (1, P, 7) on ``device``; ``with_cov=True`` returns (odometry, voxel
+    points (1, L, V, 3), covariance parameters (1, L, V, 7), voxel masks
+    (1, L, V)), all float32 but the masks.  The net runs in eval mode
+    (running BN statistics, which no forward moves) under
+    ``torch.inference_mode``, and gets back the mode it was in: an eval
+    hook runs in the middle of training.  Given pinned host tensors (as
+    run_eval pins them), nothing here waits for the device."""
+    raw = {}
+    for k in ("points", "point_mask"):
+        t = torch.as_tensor(batch[k])
+        raw[k] = t.to(device, non_blocking=t.is_pinned())[0]
+    was_training = net.training
+    net.eval()
+    try:
+        with torch.inference_mode():
+            preds = net(prepare_batch(raw, cfg), with_cov=with_cov)
+            odom = preds["odometry"].float()[None]
+            if not with_cov:
+                return odom
+            pts = torch.stack([f[:, :3].float()
+                               for f in preds["voxel_features"]])
+            covs = torch.stack([c.float() for c in preds["voxel_covs"]])
+            msk = torch.stack(preds["voxel_masks"])
+            return odom, pts[None], covs[None], msk[None]
+    finally:
+        net.train(was_training)

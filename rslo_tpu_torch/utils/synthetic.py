@@ -6,17 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-
-def quat_to_matrix_np(q: np.ndarray) -> np.ndarray:
-    """wxyz quaternion -> 3x3 rotation matrix (float64)."""
-    q = np.asarray(q, np.float64)
-    q = q / np.linalg.norm(q)
-    w, x, y, z = q
-    return np.array([
-        [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
-        [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
-        [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
-    ])
+from ..geometry.transforms import quat_to_matrix_np
 
 
 def synth_cloud(rng: np.random.Generator, n_points: int = 100000,

@@ -1,5 +1,7 @@
 """The PyTorch port imports torch and never jax, flax or the JAX package
-(``rslo_tpu``), and neither does ``chip_smoke.py``."""
+(``rslo_tpu``), and neither does ``chip_smoke.py``.  h5py and matplotlib
+(absent on the card's machine) are imported only where a store is
+opened or a plot drawn."""
 import ast
 import os
 import subprocess
@@ -15,7 +17,8 @@ names = [m.name for m in pkgutil.walk_packages(rslo_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "flax", "rslo_tpu"))
+                if m.split(".")[0] in ("jax", "flax", "rslo_tpu", "h5py",
+                                       "matplotlib"))
 print(len(names), leaked)
 """
 
@@ -26,9 +29,27 @@ def test_port_modules_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
-    # every subpackage and module of the port is walked
-    assert int(n) >= 24, out.stdout
+    # every subpackage and module of the port is walked, the CLI and the
+    # eval, data and logging modules among them
+    assert int(n) >= 45, out.stdout
     assert leaked.strip() == "[]", out.stdout
+
+
+def test_port_cli_imports_without_jax():
+    """``python -m rslo_tpu_torch.cli`` loads no JAX, h5py or
+    matplotlib, and shows its ``evaluate`` verb."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = ("import sys, rslo_tpu_torch.cli; print(sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
+            "'h5py', 'matplotlib')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    usage = subprocess.run([sys.executable, "-m", "rslo_tpu_torch.cli",
+                            "--help"], cwd=REPO, env=env,
+                           capture_output=True, text=True, timeout=120)
+    assert usage.returncode == 0 and "evaluate" in usage.stdout
 
 
 def _imported_roots(path):

@@ -112,3 +112,19 @@ def np_(x):
             else x.numpy()
     return np.asarray(x.astype(jnp.float32) if x.dtype == jnp.bfloat16
                       else x)
+
+
+def assert_same(got, want, path="out"):
+    """Nested dicts, lists, tuples, arrays and scalars: equal types and
+    keys, values bit-equal with NaN equal to NaN."""
+    if isinstance(want, dict):
+        assert isinstance(got, dict) and list(got) == list(want), path
+        for k in want:
+            assert_same(got[k], want[k], f"{path}[{k!r}]")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_same(g, w, f"{path}[{i}]")
+    else:
+        assert type(got) is type(want), (path, type(got), type(want))
+        np.testing.assert_array_equal(got, want, err_msg=path)
