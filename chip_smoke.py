@@ -37,8 +37,9 @@ exits non-zero when it fails):
      ``StreamingOdometry``: exactly 14 B4 and 0 ``gather_matmul``
      launches per scan, pose after scan 2 == the two-frame forward;
      timing of streaming, the two-frame forward, and B4 and B5 against
-     their plain versions and against B1 at the same conv; B4 at each of
-     the 20 band convs and its frame sum
+     their plain versions and against B1 at the same conv, B5 also
+     against ``torch.index_select`` computing the same im2col; B4 at each
+     of the 20 band convs and its frame sum
   7. ``nn_search`` (B3) bit-equal to its plain version at the deployed
      3 x 20000 x 20000, plus ties, an all-invalid tgt, masked src rows,
      ragged N, M, and the kernel's own boundaries: ties that straddle its
@@ -50,11 +51,19 @@ exits non-zero when it fails):
      ``round_operand(torch.where(valid, features[idx], 0))`` at the 20
      train convs in bf16 and f32, an all-invalid ``valid`` and NaN rows
      that only invalid taps point at
-  9. the sparse conv's backward against torch autograd through the
-     plain conv, at the 20 conv calls of one frame, bf16 and f32: on the
-     rulebook engine (``gather_matmul_dgrad`` + ``row_gather`` + one f32
-     product) and on the band engine (B4 over the flipped weights and B5
-     for the submanifold plans, the rulebook backward for the others)
+  9. B5 in both modes bit-equal to its plain versions, bf16 and f32: its
+     fused d_W mode (``overflow=``) to the three-pass chain it replaces
+     (``band_gather_dw_plain``), at the 14 submanifold plans of a train
+     frame, an overflow-heavy tiny-window plan, a saturated plan,
+     all-invalid ``sel``, NaN rows behind ``sel = -1``, -0.0 rows (+0.0
+     at an overflow slot), 7, 16, 32 and 64 channels and misaligned
+     feature views; the band conv's d_W bit-equal with the fused mode
+     and with the three-pass chain; then the sparse conv's backward
+     against torch autograd through the plain conv, at the 20 conv calls
+     of one frame, bf16 and f32: on the rulebook engine
+     (``gather_matmul_dgrad`` + ``row_gather`` + one f32 product) and on
+     the band engine (B4 over the flipped weights and B5's fused mode for
+     the submanifold plans, the rulebook backward for the others)
  10. train: ``Trainer.fit`` for 2 warmup and 2 post-warmup steps on
      3-frame windows of 100k-point scans padded to 131072 (for this run
      only ``loss.warmup_steps`` is 1: a step is a warmup step while its
@@ -67,8 +76,10 @@ exits non-zero when it fails):
      feature gradient at the 19 backward convs and B4's at the
      submanifold plans, each with its frame sum; the dense case; the d_W
      im2col at the 20 train convs, fused ``row_gather`` against the
-     three passes it replaced, with its frame sum (phases 5, 6 and 11
-     run before 12 and 13, whose CPU threads would share the host)
+     three passes it replaced, with its frame sum; the band d_W operand
+     at the 14 submanifold plans, B5's fused mode against the three
+     passes it replaced, with its frame sum (phases 5, 6 and 11 run
+     before 12 and 13, whose CPU threads would share the host)
  12. the two-frame forward on the card against the same model on the
      CPU (plain versions), in float32 at the same widths; and the band
      engine against the rulebook engine on the card, in float32
@@ -98,11 +109,14 @@ over back-to-back calls launched from the host (CUDA events,
 (``DIR/rslo_tpu_torch/csrc/``, the same C interface) and times them
 against this one, in turns: the gather-GEMM at every conv, B3 at the
 deployed call, B2 at the L0 im2col and, in its three-pass composition,
-at every d_W im2col; and in phase 13 it reads the f32 train step at the
-trained weights (the rulebook trainer's, after phases 10 and 11) on the
-card, with this checkout's kernels and with the other's, each against
-the CPU (printed, not held: the trained weights differ from run to
-run).
+at every d_W im2col, B5 at the L0 plan and, in its three-pass
+composition, at every band d_W operand; the band train step with the
+parent's d_W chain (phase 11); phase 9 holds the band d_W against the
+parent's three-pass chain; and in phase 13 it reads the f32 train step
+at the trained weights (the rulebook trainer's, after phases 10 and 11)
+on the card, with this checkout's kernels and with the other's, each
+against the CPU (printed, not held: the trained weights differ from run
+to run).
 
 The last two lines of standard output are the kernel summary (JSON)
 and the result (JSON); the card's ``nvidia-smi`` line comes before.
@@ -389,7 +403,7 @@ ENTRY_POINTS = {
     "gather_matmul": ("gather_matmul_launch", "gather_matmul_max_channels",
                       "gather_matmul_shared_bytes"),
     "band_conv": ("band_matmul_launch", "band_gather_launch",
-                  "band_matmul_max_channels"),
+                  "band_gather_fused_launch", "band_matmul_max_channels"),
     "row_gather": ("row_gather_launch", "row_gather_fused_launch"),
     "nn_search": ("nn_search_launch",)}
 
@@ -400,8 +414,8 @@ def load_parent_libraries(parent, _build, dma_gather, bc, chamfer):
     ``routed(*names)``, a context manager inside which the named
     libraries' wrappers launch the parent's kernels; with no names, every
     library whose parent build has all of this checkout's entry points
-    (the parent's ``row_gather.cu`` may lack the fused one: its
-    three-pass im2col is then routed by name)."""
+    (the parent's ``row_gather.cu`` or ``band_conv.cu`` may lack the
+    fused one: its three-pass im2col is then routed by name)."""
     out_dir = os.path.join(REPO, "build", "parent_kernels")
     os.makedirs(out_dir, exist_ok=True)
     loaders = {"gather_matmul": (dma_gather, "_library"),
@@ -462,17 +476,18 @@ def gemm_bound(inputs, out_rows, cin, cout, pairs):
                     2.0 * pairs * cin * cout)
 
 
-def time_convs(label, cases, torch, parent=None):
+def time_convs(label, cases, torch, parent=None, libs=()):
     """Device µs per call (``graph_us``, 20 calls a graph) of each
     (desc, fn, bound) in ``cases``, and with ``parent`` (the context of
-    ``load_parent_libraries``) the parent's kernel in turns.  Prints a
-    line per conv and the frame sum; returns the frame sum in ms."""
+    ``load_parent_libraries``) the kernel of the parent's libraries
+    ``libs`` in turns.  Prints a line per conv and the frame sum; returns
+    the frame sum in ms."""
     total = {"new": 0.0, "parent": 0.0}
     for desc, fn, bnd in cases:
         named = [("new", fn)]
         if parent is not None:
             def on_parent(fn=fn):
-                with parent():
+                with parent(*libs):
                     return fn()
             named = [("parent", on_parent)] + named
         us = graph_us(named, 20, torch)
@@ -741,6 +756,141 @@ def band_edge_cases(rb_call, plan, bc, sc, torch):
             ("ragged V, NaN rows", f_nan, w, ragged)]
 
 
+def band_gather_cases(band_calls, bc, torch):
+    """(label, f_pad, plan) cases of B5 in both modes: the submanifold
+    plans of a train frame and, at its L0 conv (16 channels), an
+    overflow-heavy tiny-window plan, a saturated plan, all-invalid sel,
+    NaN rows that only sel = -1 would reach (every 5th row's taps made
+    invalid), -0.0 rows, and features of 7, 16, 32 and 64 channels on the
+    tiny-window plan, each also as a view 4 bytes past an aligned address
+    (16 channels also 8 bytes past).  Also checks that a -0.0 row comes
+    out +0.0 at an overflow slot of the fused mode (added onto a +0.0)
+    and -0.0 in the window."""
+    cases = [(f"conv {i:2d}", bc.pad_rows(f, op.plan.v_in).contiguous(),
+              op.plan) for i, (f, op, *_) in enumerate(band_calls)
+             if op.plan.self_transpose]
+    f, op = band_calls[1][:2]
+    rb, plan = op.rb, op.plan
+    V = rb.idx.shape[0]
+    dev = f.device
+    n_valid = int(rb.valid.sum())
+    tiny = bc.build_band_index(rb, V, window=16, ov_capacity=n_valid,
+                               self_transpose=True)
+    sat = bc.build_band_index(rb, V, window=16,
+                              ov_capacity=max(1, int(tiny.ov_count) // 4),
+                              self_transpose=True)
+    if bool(bc.overflow_saturated(tiny)) or not bool(
+            bc.overflow_saturated(sat)):
+        fail("B5 cases: the tiny-window plan must keep every overflow pair "
+             "and the saturated one drop some")
+    ft = bc.pad_rows(f, tiny.v_in).contiguous()
+    hidden = torch.zeros(V, dtype=torch.bool, device=dev)
+    hidden[::5] = True
+    cut = type(rb)(rb.idx, rb.valid & ~hidden[rb.idx.long()])
+    hplan = bc.build_band_index(cut, V, window=16, ov_capacity=n_valid,
+                                self_transpose=True)
+    fh = bc.pad_rows(f, hplan.v_in)
+    used = torch.zeros(fh.shape[0], dtype=torch.bool, device=dev)
+    used[(hplan.base[:, :, None] + hplan.sel)[hplan.sel >= 0].long()] = True
+    Vp = hplan.sel.shape[0] * hplan.sel.shape[2]
+    used[hplan.ov_in[hplan.ov_out < Vp].long()] = True
+    if used[:V][hidden].any():
+        fail("B5 cases: a row whose taps are all invalid is read")
+    f_nan = torch.where(used[:, None], fh, float("nan"))
+    f_neg = ft.clone()
+    f_neg[::3] = -0.0
+    cases += [
+        ("L0 tiny window", ft, tiny), ("L0 saturated", ft, sat),
+        ("L0 all-invalid sel", bc.pad_rows(f, plan.v_in).contiguous(),
+         plan._replace(sel=torch.full_like(plan.sel, -1))),
+        (f"L0 NaN rows ({int((~used).sum())})", f_nan, hplan),
+        ("L0 -0.0 rows", f_neg, tiny)]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = ft.shape[0]
+    for C in (7, 16, 32, 64):
+        fc = torch.randn(n, C, generator=gen, device=dev)
+        cases.append((f"L0 tiny window, Cin {C}", fc, tiny))
+        for off in ((1, 2) if C == 16 else (1,)):
+            buf = torch.empty(n * C + off, device=dev)
+            view = buf[off:].view(n, C)
+            view.copy_(fc)
+            cases.append((f"L0 tiny window, Cin {C}, {4 * off} bytes past "
+                          f"alignment", view, tiny))
+    # -0.0: +0.0 at the fused mode's overflow slots, -0.0 in the window
+    nB, K, B = tiny.sel.shape
+    keep = tiny.ov_out < nB * B
+    neg_ov = keep & (tiny.ov_in % 3 == 0)
+    sel = tiny.sel.permute(0, 2, 1)
+    src = tiny.base[:, None, :] + sel
+    neg_win = ((sel >= 0) & (src % 3 == 0)).reshape(nB * B, K)
+    for dt in (torch.bfloat16, torch.float32):
+        dw = bc.band_gather(f_neg, tiny.base, tiny.sel, dt, overflow=(
+            tiny.ov_out, tiny.ov_in, tiny.ov_tap))
+        b32 = bits(dw, torch).reshape(nB * B, K, -1)
+        at_ov = b32[tiny.ov_out[neg_ov].long(), tiny.ov_tap[neg_ov].long()]
+        if not (at_ov == 0).all() or not (
+                b32[neg_win] == -2 ** 31).all():
+            fail(f"band_gather fused ({dt}): -0.0 must come out +0.0 at an "
+                 f"overflow slot and -0.0 in the window")
+    say(f"  -0.0 rows: {int(neg_ov.sum())} overflow slots +0.0 and "
+        f"{int(neg_win.sum())} window slots -0.0, bf16 and f32")
+    return cases
+
+
+def check_band_gather(cases, bc, torch):
+    """B5 bit-equal to its plain versions, bf16 and f32, at each (label,
+    f_pad, plan): the plain contract to ``band_gather_plain`` and the
+    fused d_W mode to ``band_gather_dw_plain`` (the three-pass chain it
+    replaces: B5's im2col, ``overflow_add_g``, ``.float()``)."""
+    for label, f_pad, plan in cases:
+        ov = (plan.ov_out, plan.ov_in, plan.ov_tap)
+        for dt in (torch.bfloat16, torch.float32):
+            g = bc.band_gather(f_pad, plan.base, plan.sel, dt)
+            g_ref = bc.band_gather_plain(f_pad, plan.base, plan.sel, dt)
+            dw = bc.band_gather(f_pad, plan.base, plan.sel, dt, overflow=ov)
+            dw_ref = bc.band_gather_dw_plain(f_pad, plan.base, plan.sel, dt,
+                                             ov)
+            torch.cuda.synchronize()
+            if g.dtype != dt or not torch.equal(bits(g, torch),
+                                                bits(g_ref, torch)):
+                fail(f"band_gather != band_gather_plain at {label} ({dt})")
+            if dw.dtype != torch.float32 or not torch.equal(
+                    bits(dw, torch), bits(dw_ref, torch)):
+                fail(f"band_gather fused != band_gather_dw_plain at {label} "
+                     f"({dt})")
+        nB, K, B = plan.sel.shape
+        Vp = nB * B
+        say(f"  {label}: nB={nB:3d} K={K:2d} B={B} W={plan.window:4d} "
+            f"Cin={f_pad.shape[1]:2d} ({f_pad.data_ptr() % 16} bytes past "
+            f"16), {int((plan.ov_out < Vp).sum())} overflow pairs of "
+            f"{int(plan.ov_count)}: both modes bit-equal, bf16 and f32")
+
+
+@contextlib.contextmanager
+def three_pass_band_dw(bc, route=contextlib.nullcontext):
+    """Inside the block the band backward builds its d_W operand as the
+    parent did: ``band_gather``'s plain contract (the kernel of the
+    library that ``route()`` routes in), then ``overflow_add_g`` and
+    ``.float()``, three passes over the im2col.  The wrapper counts its
+    launches on the module's ``band_gather``, the stand-in inside the
+    block; the count goes back to the wrapper after it."""
+    fused = bc.band_gather
+
+    def three_pass(f_pad, base, sel, compute_dtype, overflow=None):
+        g = fused(f_pad, base, sel, compute_dtype)
+        if overflow is None:
+            return g
+        return bc.overflow_add_g(g, f_pad, *overflow).float()
+    three_pass.launches = fused.launches
+    bc.band_gather = three_pass
+    try:
+        with route():
+            yield
+    finally:
+        bc.band_gather = fused
+        fused.launches = three_pass.launches
+
+
 DENSE_SIDE = 32   # the dense case: a solid cube of DENSE_SIDE^3 voxels
 DENSE_C = 64
 
@@ -994,6 +1144,16 @@ def main():
                                     chamfer) if opts.parent else None)
     frame_ms = {}
 
+    def on_parent(name, fn):
+        """``fn`` with the parent's ``name`` library routed in."""
+        def run():
+            with parent(name):
+                return fn()
+        return run
+
+    def with_parent(name, fn):
+        return [] if parent is None else [("parent", on_parent(name, fn))]
+
     # -- 3. kernel vs plain at the main path's 20 conv calls --------------
     with open(CONFIG) as fh:
         cfg = PipelineCfg.from_json(fh.read())
@@ -1132,7 +1292,8 @@ def main():
              gemm_bound((f_, rb_.idx, rb_.valid, w_, b_, om_),
                         rb_.idx.shape[0], f_.shape[1], w_.shape[2],
                         int(rb_.valid.sum())))
-            for i, (f_, rb_, w_, b_, om_) in enumerate(calls)], torch, parent)
+            for i, (f_, rb_, w_, b_, om_) in enumerate(calls)], torch, parent,
+            ("gather_matmul",))
     say(f"[time] streaming {stream_ms:.3f} ms/scan "
         f"({1e3 / stream_ms:.2f} scans/s), median of 20 after warm-up")
     say(f"[time] two-frame forward {two_ms:.3f} ms, median of 10")
@@ -1195,6 +1356,22 @@ def main():
     f1, op1, w1, _, _ = bcalls[1]             # L0 subm, 16 -> 16
     plan1 = op1.plan
     fp1 = bc.pad_rows(f1, plan1.v_in)
+    # B5's PyTorch call: one index_select of the plan's flattened sources
+    # from a bf16 copy of the features with a zero row appended (built
+    # here, outside the clock), which computes the same bf16 im2col
+    src1, valid1 = bc._sources(plan1.base, plan1.sel)
+    idx_lib = torch.where(valid1[:, 0], src1, fp1.shape[0])
+    f_lib = torch.cat([fp1, fp1.new_zeros(1, fp1.shape[1])]).to(bf16)
+
+    def b5_lib():
+        return torch.index_select(f_lib, 0, idx_lib)
+
+    def b5_new():
+        return bc.band_gather(fp1, plan1.base, plan1.sel, bf16)
+    if not torch.equal(bits(b5_lib().reshape(plan1.sel.shape[0] *
+                                             plan1.sel.shape[2], -1), torch),
+                       bits(b5_new(), torch)):
+        fail("torch.index_select of the plan's sources != band_gather")
     with torch.no_grad():
         us = graph_us([
             ("B4 plain", lambda: bc.band_conv_plain(fp1, w1, plan1.base,
@@ -1205,8 +1382,9 @@ def main():
                                          bf16)),
             ("B5 plain", lambda: bc.band_gather_plain(fp1, plan1.base,
                                                       plan1.sel, bf16)),
-            ("B5", lambda: bc.band_gather(fp1, plan1.base, plan1.sel,
-                                          bf16))], 20, torch)
+            ("B5", b5_new), ("B5 library", b5_lib)]
+            + [(f"B5 {n}", fn) for n, fn in with_parent("band_conv", b5_new)],
+            20, torch)
         say("[convs] B4 forward, bf16, the 20 band convs of frame 0")
         frame_ms["band_matmul"] = time_convs("B4", [
             (f"conv {i:2d} nB={op_.plan.sel.shape[0]:3d} "
@@ -1217,7 +1395,8 @@ def main():
                          op_.plan.sel, w_), op_.plan.sel.shape[0] *
                         op_.plan.sel.shape[2], f_.shape[1], w_.shape[2],
                         band_pairs(op_.plan)))
-            for i, (f_, op_, w_, _, _) in enumerate(bcalls)], torch, parent)
+            for i, (f_, op_, w_, _, _) in enumerate(bcalls)], torch, parent,
+            ("band_conv",))
     nB, K1, B1 = plan1.sel.shape
     cin1, cout1 = w1.shape[1], w1.shape[2]
     b4_bound = bound_ms(nbytes(fp1, plan1.base, plan1.sel, w1) +
@@ -1233,8 +1412,13 @@ def main():
         f"({band_pairs(plan1)} in-window pairs): band_matmul {us['B4']:.2f} "
         f"us/call, plain band_conv_plain {us['B4 plain']:.2f} us/call, "
         f"gather_matmul (B1) at the same conv {us['B1']:.2f} us/call; "
-        f"band_gather {us['B5']:.2f} us/call, plain band_gather_plain "
-        f"{us['B5 plain']:.2f} us/call (device time, in turns); "
+        f"band_gather {us['B5']:.2f} us/call" + (
+            "" if parent is None else
+            f", parent {us['B5 parent']:.2f} "
+            f"({us['B5 parent'] / us['B5']:.2f}x)")
+        + f", plain band_gather_plain {us['B5 plain']:.2f} us/call, "
+        f"torch.index_select {us['B5 library']:.2f} us/call (device time, "
+        f"in turns); "
         f"bounds B4 {b4_bound[0] * 1e3:.2f} us ({b4_bound[1]}), B5 "
         f"{b5_bound[0] * 1e3:.2f} us ({b5_bound[1]})")
     for engine, model, cfg_, wall_ms in (("rulebook", net, cfg, stream_ms),
@@ -1265,7 +1449,7 @@ def main():
         source="rslo_tpu_torch/csrc/band_conv.cu",
         replaces="rslo_tpu/ops/band_conv.py:282", max_abs_err=0.0,
         ms=us["B5"] / 1e3, plain_ms=us["B5 plain"] / 1e3, bound=b5_bound,
-        library_ms=None)
+        library_ms=us["B5 library"] / 1e3)
 
     # -- the train path's config, model and data ----------------------------
     with open(TRAIN_CONFIG) as fh:
@@ -1480,6 +1664,42 @@ def main():
                 for _, op, *_ in band_train_calls)):
         fail("the band train-mode frame did not run 20 differentiable band "
              "convs")
+    # B5 in both modes: the fused d_W mode and the plain contract
+    say("[band_gather] B5's plain contract and fused d_W mode bit-equal to "
+        "their plain versions")
+    with torch.no_grad():
+        check_band_gather(band_gather_cases(band_train_calls, bc, torch), bc,
+                          torch)
+    # the band conv's d_W with the fused mode bit-equal to the three-pass
+    # chain's (the parent's kernel, or with no parent this checkout's)
+    route = ((lambda: parent("band_conv")) if parent is not None
+             else contextlib.nullcontext)
+    gen9 = torch.Generator(device=dev).manual_seed(SEED)
+    n_st = 0
+    for f_, op, w_, b_, om_ in band_train_calls:
+        if not op.plan.self_transpose:
+            continue
+        n_st += 1
+        ct = torch.randn(op.plan.v_out, w_.shape[2], device=dev,
+                         generator=gen9)
+        for dt in (bf16, torch.float32):
+            grads = []
+            for ctx in (contextlib.nullcontext, lambda: three_pass_band_dw(
+                    bc, route)):
+                wi = w_.clone().requires_grad_()
+                with ctx():
+                    bc.band_conv(f_, op.plan, wi, b_, om_, dt, op.rb,
+                                 op.rb_t).backward(ct)
+                grads.append(bits(wi.grad, torch))
+            if not torch.equal(*grads):
+                fail(f"band d_W with the fused mode != the three-pass chain's "
+                     f"({dt})")
+    say(f"[band_gather] the band conv's d_W at the {n_st} submanifold plans "
+        f"of a train frame, bf16 and f32: bit-equal with the fused mode and "
+        f"with the three-pass chain on "
+        f"{'the parent' if parent is not None else 'this checkout'}'s "
+        f"band_gather")
+
     engines = {
         "rulebook": (BWD_REL_TOL, train_calls,
                      lambda f_, op, w_, b_, om_, dt: sparse_conv(
@@ -1604,16 +1824,33 @@ def main():
             f"warm-up step each); peak device memory "
             f"{peak_mib[engine]:.1f} MiB, {peak_mib[engine] - live_mib:.1f} "
             f"MiB above the {live_mib:.1f} MiB live before the steps")
-    def on_parent(name, fn):
-        """``fn`` with the parent's ``name`` library routed in."""
-        def run():
-            with parent(name):
-                return fn()
-        return run
-
-    def with_parent(name, fn):
-        return [] if parent is None else [("parent", on_parent(name, fn))]
-
+    if parent is not None:
+        # the band step with the parent's d_W chain (its band_gather
+        # kernel, overflow_add_g, .float()) and with this one's, in turns
+        band_turns = {}
+        for name in ("parent", "new", "new", "parent"):
+            ctx = (three_pass_band_dw(bc, lambda: parent("band_conv"))
+                   if name == "parent" else contextlib.nullcontext())
+            with ctx:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                for warm in (True, False):
+                    train_step(bstate, gpu_batch, btcfg, btrainer.optimizer,
+                               warmup=warm)                    # warm-up
+                    band_turns.setdefault((name, warm), []).append(
+                        median_ms(lambda: train_step(
+                            bstate, gpu_batch, btcfg, btrainer.optimizer,
+                            warmup=warm), 5, torch))
+                band_turns.setdefault((name, "peak"), []).append(
+                    torch.cuda.max_memory_allocated(dev) / 2 ** 20)
+        for name in ("parent", "new"):
+            say(f"[time] band train step, {name} d_W chain (turns parent, "
+                f"new, new, parent): warmup " + " / ".join(
+                    f"{t:.3f}" for t in band_turns[name, True])
+                + " ms, post-warmup " + " / ".join(
+                    f"{t:.3f}" for t in band_turns[name, False])
+                + " ms; peak device memory " + " / ".join(
+                    f"{m:.1f}" for m in band_turns[name, "peak"]) + " MiB")
     def nn_new():
         return chamfer._launch(src, sm, tgt, tm)
 
@@ -1672,8 +1909,8 @@ def main():
                     ct_, rbt.idx, rbt.valid, wt_, bf16),
                 gemm_bound((ct_, rbt.idx, rbt.valid, wt_), rbt.idx.shape[0],
                            w_.shape[2], w_.shape[1], int(rbt.valid.sum()))))
-        frame_ms["gather_matmul_dgrad"] = time_convs("B1 dgrad", cases,
-                                                       torch, parent)
+        frame_ms["gather_matmul_dgrad"] = time_convs(
+            "B1 dgrad", cases, torch, parent, ("gather_matmul",))
         say("[convs] B4 feature gradient, bf16, the submanifold band plans "
             "of a train frame")
         cases = []
@@ -1692,8 +1929,8 @@ def main():
                 gemm_bound((ctp, p_.base, p_.sel, wt_),
                            p_.sel.shape[0] * p_.sel.shape[2], w_.shape[2],
                            w_.shape[1], band_pairs(p_))))
-        frame_ms["band_matmul_dgrad"] = time_convs("B4 dgrad", cases,
-                                                     torch, parent)
+        frame_ms["band_matmul_dgrad"] = time_convs(
+            "B4 dgrad", cases, torch, parent, ("band_conv",))
         say("[convs] d_W im2col, bf16, the 20 train convs: the fused "
             "row_gather against row_gather + torch.where + round_operand "
             "(three passes, as the parent's sparse_conv_grads ran them)"
@@ -1733,6 +1970,51 @@ def main():
                 f", parent three-pass {im2col['parent']:.4f} ms "
                 f"({im2col['fused'] / im2col['parent']:.3f} of it)")
             + " over 20 convs")
+        say("[convs] band d_W operand, bf16, the submanifold plans of a "
+            "train frame: band_gather's fused mode against band_gather + "
+            "overflow_add_g + .float() (three passes, as the parent's "
+            "backward ran them)" + ("" if parent is None else
+                                    ", with this checkout's and with the "
+                                    "parent's band_gather"))
+        dw_sum, faster = {}, 0
+        for i, (f_, op_, *_) in enumerate(band_train_calls):
+            p_ = op_.plan
+            if not p_.self_transpose:
+                continue
+            fp_ = bc.pad_rows(f_, p_.v_in).contiguous()
+            ov_ = (p_.ov_out, p_.ov_in, p_.ov_tap)
+
+            def chain(fp_=fp_, p_=p_, ov_=ov_):
+                g = bc.band_gather(fp_, p_.base, p_.sel, bf16)
+                return bc.overflow_add_g(g, fp_, *ov_).float()
+            us = graph_us([
+                ("three-pass", chain),
+                ("fused", lambda fp_=fp_, p_=p_, ov_=ov_: bc.band_gather(
+                    fp_, p_.base, p_.sel, bf16, overflow=ov_))]
+                + with_parent("band_conv", chain), 20, torch)
+            for k, v in us.items():
+                dw_sum[k] = dw_sum.get(k, 0.0) + v / 1e3
+            faster += us["fused"] < us.get("parent", us["three-pass"])
+            nB_, K_, B_ = p_.sel.shape
+            bnd = bound_ms(nbytes(fp_, p_.base, p_.sel, *ov_) +
+                           nB_ * B_ * K_ * fp_.shape[1] * 4)
+            say(f"  d_W operand conv {i:2d} nB={nB_:3d} K={K_:2d} "
+                f"Cin={fp_.shape[1]:2d} ({int(p_.ov_count)} overflow "
+                f"pairs): fused {us['fused']:8.2f} us, three-pass "
+                f"{us['three-pass']:8.2f} us "
+                f"({us['three-pass'] / us['fused']:.2f}x)" + (
+                    "" if parent is None else
+                    f", parent three-pass {us['parent']:8.2f} us "
+                    f"({us['parent'] / us['fused']:.2f}x)")
+                + f"; bound {bnd[0] * 1e3:7.2f} us ({bnd[1]})")
+        frame_ms["band_gather"] = dw_sum["fused"]
+        say(f"[convs] band d_W operand: frame sum fused "
+            f"{dw_sum['fused']:.4f} ms, three-pass "
+            f"{dw_sum['three-pass']:.4f} ms" + (
+                "" if parent is None else
+                f", parent three-pass {dw_sum['parent']:.4f} ms "
+                f"({dw_sum['fused'] / dw_sum['parent']:.3f} of it)")
+            + f"; the fused mode faster at {faster} of {n_st} plans")
         d = dense
         dw_t = d["w"].flip(0).transpose(1, 2).contiguous()
         dwr_t = dw_t.to(bf16).float()
@@ -1763,7 +2045,7 @@ def main():
                 d["ct_pad"], dw_t, d["plan"].base, d["plan"].sel, bf16),
              gemm_bound((d["ct_pad"], d["plan"].base, d["plan"].sel, dw_t),
                         V_d, C_d, C_d, band_pairs(d["plan"])))],
-            torch, parent)
+            torch, parent, ("gather_matmul", "band_conv"))
     n_pairs = sum(int(sm[p].sum()) * int(tm[p].sum())
                   for p in range(src.shape[0]))
     nn_bound = bound_ms(nbytes(src, sm, tgt, tm) + src.shape[0] *
@@ -2006,7 +2288,8 @@ def main():
                      "eval_launches": eval_launches[name],
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the
-                     # fused d_W im2col)
+                     # fused d_W im2col; band_gather: the fused d_W
+                     # operand of the submanifold plans)
                      "frame_ms": frame_ms.get(name),
                      "host_ms": row.get("host_ms")})
     say(json.dumps({"kernels": rows}))

@@ -21,11 +21,14 @@ Kernels (``csrc/band_conv.cu``, built at first use):
     d_features (tap-flipped, transposed weights over the same plan),
     counted apart;
   * ``band_gather`` (B5, replacing ``_windowed_pallas_gather``): the
-    same selection written as an im2col (Vp, K*Cin) in the compute dtype.
-Their plain versions ``band_conv_plain`` and ``band_gather_plain`` sit
-beside them.  Each wrapper launches its kernel on a CUDA tensor or
-raises, and runs the plain version on a CPU tensor; each counts its
-launches in ``<wrapper>.launches``.
+    same selection written as an im2col (Vp, K*Cin) in the compute dtype;
+    with ``overflow=`` it is the submanifold d_W operand in one call, the
+    im2col plus the overflow rows in float32 (``_overflow_add_g`` and
+    ``astype(f32)`` of JAX's custom VJP fused in).
+Their plain versions ``band_conv_plain``, ``band_gather_plain`` and
+``band_gather_dw_plain`` sit beside them.  Each wrapper launches its
+kernel on a CUDA tensor or raises, and runs the plain version on a CPU
+tensor; each counts its launches in ``<wrapper>.launches``.
 
 ``band_conv_apply`` follows the JAX package's Pallas path
 (``_full_pallas_raw``): the in-window sums, then the overflow pairs in
@@ -178,6 +181,30 @@ def band_gather_plain(f_pad: torch.Tensor, base: torch.Tensor,
     return g.reshape(nB * B, K * f_pad.shape[1]).to(compute_dtype)
 
 
+def overflow_add_g(g: torch.Tensor, f_pad: torch.Tensor, ov_out: torch.Tensor,
+                   ov_in: torch.Tensor, ov_tap: torch.Tensor) -> torch.Tensor:
+    """The im2col ``g`` (Vp, K*Cin) plus the overflow pairs' rows,
+    f_pad[ov_in] rounded to g's dtype and added in it
+    (``_overflow_add_g``).  Dropped slots (ov_out == Vp) add nothing."""
+    Vp = g.shape[0]
+    Cin = f_pad.shape[1]
+    K = g.shape[1] // Cin
+    rows = torch.where(ov_out < Vp, ov_out * K + ov_tap, Vp * K).long()
+    g = torch.cat([g.reshape(Vp * K, Cin), g.new_zeros(1, Cin)])
+    g.index_add_(0, rows, f_pad[ov_in.long()].to(g.dtype))
+    return g[:-1].reshape(Vp, K * Cin)
+
+
+def band_gather_dw_plain(f_pad: torch.Tensor, base: torch.Tensor,
+                         sel: torch.Tensor, compute_dtype,
+                         overflow) -> torch.Tensor:
+    """(Vp, K*Cin) float32, the submanifold d_W operand of JAX's custom
+    VJP: ``band_gather_plain``'s im2col, the overflow pairs (ov_out,
+    ov_in, ov_tap) added in ``compute_dtype``, widened to float32."""
+    g = band_gather_plain(f_pad, base, sel, compute_dtype)
+    return overflow_add_g(g, f_pad, *overflow).float()
+
+
 def band_conv_plain(f_pad: torch.Tensor, w: torch.Tensor,
                     base: torch.Tensor, sel: torch.Tensor,
                     compute_dtype) -> torch.Tensor:
@@ -202,6 +229,9 @@ def _library() -> ctypes.CDLL:
     lib.band_gather_launch.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
     lib.band_gather_launch.restype = ctypes.c_int
+    lib.band_gather_fused_launch.argtypes = (
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    lib.band_gather_fused_launch.restype = ctypes.c_int
     lib.band_matmul_max_channels.argtypes = []
     lib.band_matmul_max_channels.restype = ctypes.c_int
     return lib
@@ -301,32 +331,66 @@ def band_matmul_dgrad(ct_pad: torch.Tensor, w_t: torch.Tensor,
 band_matmul_dgrad.launches = 0
 
 
+def _check_overflow(overflow, device):
+    """The (ov_out, ov_in, ov_tap) of a plan: three (OV,) contiguous int32
+    tensors on ``device``."""
+    if not (isinstance(overflow, (tuple, list)) and len(overflow) == 3 and
+            all(isinstance(t, torch.Tensor) for t in overflow)):
+        raise ValueError("band_gather: overflow must be the tensors "
+                         "(ov_out, ov_in, ov_tap)")
+    n = overflow[0].shape
+    for name, t in zip(("ov_out", "ov_in", "ov_tap"), overflow):
+        if (t.dim() != 1 or t.shape != n or t.dtype != torch.int32 or
+                t.device != device or not t.is_contiguous()):
+            raise ValueError(
+                f"band_gather: {name} must be a contiguous {tuple(n)} int32 "
+                f"tensor on {device}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+    return list(overflow)
+
+
 def band_gather(f_pad: torch.Tensor, base: torch.Tensor, sel: torch.Tensor,
-                compute_dtype=torch.bfloat16) -> torch.Tensor:
+                compute_dtype=torch.bfloat16, overflow=None) -> torch.Tensor:
     """B5: the plan's selection as an im2col, (nB*B, K*Cin) in
-    ``compute_dtype``, zero where sel is -1.  Launches
-    ``csrc/band_conv.cu`` on a CUDA tensor (counted in
-    ``band_gather.launches``); runs ``band_gather_plain`` on a CPU
-    one."""
+    ``compute_dtype``, zero where sel is -1.
+
+    With ``overflow`` = (ov_out, ov_in, ov_tap) of the plan it is the
+    submanifold conv's d_W operand in one call: (nB*B, K*Cin) float32,
+    bit-equal to ``band_gather_dw_plain`` (the im2col, the overflow rows
+    added in ``compute_dtype``, widened).  Launches ``csrc/band_conv.cu``
+    on a CUDA tensor (counted in ``band_gather.launches``, once a call in
+    either mode); runs the plain version on a CPU one."""
     tensors = _check("band_gather", f_pad, base, sel, compute_dtype)
+    if overflow is not None:
+        tensors += _check_overflow(overflow, f_pad.device)
     if f_pad.device.type == "cpu":
-        return band_gather_plain(f_pad, base, sel, compute_dtype)
+        if overflow is None:
+            return band_gather_plain(f_pad, base, sel, compute_dtype)
+        return band_gather_dw_plain(f_pad, base, sel, compute_dtype, overflow)
     require_cuda(f_pad.device, "band_gather", tensors)
     nB, K, B = sel.shape
     Vin, Cin = f_pad.shape
     dev = f_pad.device
-    out = torch.empty((nB * B, K * Cin), dtype=compute_dtype, device=dev)
+    out = torch.empty((nB * B, K * Cin), device=dev, dtype=(
+        compute_dtype if overflow is None else torch.float32))
     if out.numel() == 0:
         return out
+    bf16 = int(compute_dtype == torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _library().band_gather_launch(
-            f_pad.data_ptr(), base.data_ptr(), sel.data_ptr(),
-            out.data_ptr(), Vin, nB, K, B, Cin,
-            int(compute_dtype == torch.bfloat16),
-            torch.cuda.current_stream(dev).cuda_stream)
+        if overflow is None:
+            err = _library().band_gather_launch(
+                f_pad.data_ptr(), base.data_ptr(), sel.data_ptr(),
+                out.data_ptr(), Vin, nB, K, B, Cin, bf16, stream)
+        else:
+            err = _library().band_gather_fused_launch(
+                f_pad.data_ptr(), base.data_ptr(), sel.data_ptr(),
+                *(t.data_ptr() for t in overflow), out.data_ptr(), Vin, nB,
+                K, B, Cin, overflow[0].shape[0], bf16, stream)
     if err != 0:
         raise RuntimeError(f"band_gather kernel launch failed: CUDA error "
-                           f"{err} (nB={nB}, K={K}, B={B}, Cin={Cin})")
+                           f"{err} (nB={nB}, K={K}, B={B}, Cin={Cin}, "
+                           f"fused={overflow is not None})")
     band_gather.launches += 1
     return out
 
@@ -359,20 +423,6 @@ def overflow_add_out(out: torch.Tensor, f_pad: torch.Tensor,
     out = torch.cat([out, out.new_zeros(1, Cout)])
     out.index_add_(0, torch.clamp(band.ov_out, max=Vp).long(), vals)
     return out[:-1]
-
-
-def overflow_add_g(g: torch.Tensor, f_pad: torch.Tensor,
-                   band: BandIndex) -> torch.Tensor:
-    """The im2col ``g`` (Vp, K*Cin) plus the overflow pairs' rows,
-    f_pad[ov_in] rounded to g's dtype (``_overflow_add_g``)."""
-    Vp = g.shape[0]
-    K = band.sel.shape[1]
-    Cin = f_pad.shape[1]
-    rows = torch.where(band.ov_out < Vp, band.ov_out * K + band.ov_tap,
-                       Vp * K).long()
-    g = torch.cat([g.reshape(Vp * K, Cin), g.new_zeros(1, Cin)])
-    g.index_add_(0, rows, f_pad[band.ov_in.long()].to(g.dtype))
-    return g[:-1].reshape(Vp, K * Cin)
 
 
 def _check_saturation(band: BandIndex):
@@ -416,8 +466,9 @@ class _BandConv(torch.autograd.Function):
       d_features = B4 over the same plan of ct (padded to v_in rows and
                    rounded to the compute dtype inside the kernel) with
                    w_t = flip(W, taps)^T, plus the overflow pairs in f32;
-      d_W        = B5's im2col plus the overflow rows (compute dtype),
-                   times ct in one f32 product, not rounded;
+      d_W        = B5's fused mode (its im2col plus the overflow rows in
+                   the compute dtype, as f32) times ct in one f32
+                   product, not rounded;
     other plans (down, inverse): JAX differentiates the XLA formulation,
     which is the rulebook conv's autodiff on the same pairs, so the
     backward is ``sparse_conv_grads`` over the raw rulebook and its
@@ -459,10 +510,10 @@ class _BandConv(torch.autograd.Function):
         if band.self_transpose and need_w:
             K, Cin, Cout = weights.shape
             f_pad = pad_rows(features, band.v_in).contiguous()
-            g = band_gather(f_pad, band.base, band.sel, cdt)
-            g = overflow_add_g(g, f_pad, band)
+            g = band_gather(f_pad, band.base, band.sel, cdt,
+                            overflow=(band.ov_out, band.ov_in, band.ov_tap))
             with f32_matmul():
-                d_w = g.float().t() @ pad_rows(ct, g.shape[0])
+                d_w = g.t() @ pad_rows(ct, g.shape[0])
             d_w = d_w.reshape(K, Cin, Cout)
         d_bias = ct.sum(0) if need_b else None
         return d_feat, d_w, d_bias, None, None, None, None, None
