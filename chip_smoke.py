@@ -10,8 +10,11 @@ of ``configs/kitti_train_ours.json``, and the evaluation of the trained
 checkpoints through the CLI's ``evaluate`` verb, each on the rulebook
 engine and on the band engine (``middle.engine="band"`` with the schema's band
 defaults: block 256, windows (384, 1280, 768), min_channels 0, so every
-one of the 20 convs of a frame gets a band plan).  Phases (each one
-exits non-zero when it fails):
+one of the 20 convs of a frame gets a band plan); then the pillar
+configuration streamed, trained through the CLI's ``train`` verb and
+evaluated at its best checkpoint, and the train verb on the shipped
+config warm-started from it.  Phases (each one exits non-zero when it
+fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -99,6 +102,29 @@ exits non-zero when it fails):
      and none of any other, and window 0's odometry == the checkpoint's
      two-frame forward on the same collated points; its frames/s and
      ms/window are printed
+ 15. the pillar configuration (``pillar_config``: ``PipelineCfg()`` with
+     the overrides of ``scripts/accuracy_proxy.py::base_cfg``, the
+     recipe of every committed accuracy result, ``loss.warmup_steps`` 1
+     and ``train.steps_per_eval`` 2) at the shipped grid: the pillar
+     image 768 x 1408 x 49 and the BEV 96 x 176 x 128, the convs' FLOPs
+     a frame; 8 scans through ``StreamingOdometry`` with no kernel of
+     B1-B5 launched, the pose after scan 2 == the two-frame forward;
+     ms/scan, device ms and ops a scan
+ 16. the CLI's train verb on it, ``--synthetic``, in two legs (``--steps
+     6 --leg_until 4``, then ``--steps 6``, which resumes at 4): each
+     step's launches (only ``nn_search``, ``warmup_icp_iter`` or
+     ``icp_iter`` a step) and host ms, none in the eval hook, which ran
+     at steps 2, 4 and 6 and wrote ``best_ckpt.json`` and ``ckpt_best/``;
+     the train step timed at the trained weights (both variants, peak
+     device memory, device ms and ops of a post-warmup step)
+ 17. ``evaluate --ckpt_step best`` on that run (phase 14's checks, no
+     kernel launched, 16 windows)
+ 18. the train verb on ``configs/kitti_train_ours.json`` (rulebook) for 2
+     steps, warm-started from the pillar run with ``--pretrained_include
+     bev_net``: at step 0 every ``bev_net`` tensor is the pillar
+     checkpoint's, the middle keeps its seeded init and the alphas are
+     carried; each step's B1 (forward and dgrad), B2 and B3 launches
+     equal ``predicted_launches``
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -118,8 +144,10 @@ on the card, with this checkout's kernels and with the other's, each
 against the CPU (printed, not held: the trained weights differ from run
 to run).
 
-The last two lines of standard output are the kernel summary (JSON)
-and the result (JSON); the card's ``nvidia-smi`` line comes before.
+The last two lines of standard output are the kernel summary (JSON;
+each kernel's ``launches`` from phase 10 and its launches on the paths
+of phases 14-18 beside them) and the result (JSON); the card's
+``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
 import argparse
@@ -143,6 +171,12 @@ CONFIG = os.path.join(REPO, "configs", "kitti_eval_ours.json")
 TRAIN_CONFIG = os.path.join(REPO, "configs", "kitti_train_ours.json")
 TRAIN_DIR = os.path.join(REPO, "build", "smoke_train")
 BAND_TRAIN_DIR = os.path.join(REPO, "build", "smoke_train_band")
+# phases 15-18: the pillar configuration's run dir (its config JSON, the
+# train verb's model dir) and the shipped config's warm-started run
+PILLAR_DIR = os.path.join(REPO, "build", "smoke_pillar")
+VERB_DIR = os.path.join(REPO, "build", "smoke_train_verb")
+PILLAR_STEPS, PILLAR_LEG = 6, 4
+VERB_STEPS = 2
 KERNELS = ("gather_matmul", "row_gather", "nn_search", "band_conv")
 N_SCANS = 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
@@ -171,7 +205,7 @@ POSE_TOL = dict(rtol=1e-5, atol=1e-5)
 # sparse convs a frame without the covariance decoder (streaming, eval)
 ENCODER_CONVS = 14
 # phase 14: windows evaluated on each engine
-EVAL_WINDOWS = {"rulebook": 16, "band": 8}
+EVAL_WINDOWS = {"rulebook": 16, "band": 8, "pillar": 16}
 # the JAX package's run_eval result keys (rslo_tpu/eval/runner.py)
 EVAL_KEYS = {
     "_meta": ["windows", "elapsed_s", "frames_per_s"],
@@ -205,6 +239,9 @@ SMOKE_WARMUP_STEPS = 1  # steps 0 and 1 warm up, 2 and 3 do not
 # of its capacity (tests/test_band_conv.py's deployed-shape guard)
 OVERFLOW_SHARE = 0.5
 AUDIT_POINTS = 131072   # that guard's frame: PipelineCfg().data.max_points
+# the pillar configuration's shapes at the shipped grid (1408 x 768 x 40)
+PILLAR_IMAGE = (768, 1408, 49)
+PILLAR_BEV = (96, 176, 128)
 
 
 def fail(msg):
@@ -556,6 +593,74 @@ def train_batches(vcfg_points, seq_length, n_windows, seed, np):
         out.append({"points": pts, "point_mask": mask,
                     "odometry": np.stack(odom).astype(np.float32)})
     return out
+
+
+def pillar_config(PipelineCfg):
+    """The configuration of every committed accuracy result:
+    ``PipelineCfg()`` with the overrides of
+    ``scripts/accuracy_proxy.py::base_cfg`` (the pillar middle; skip 2
+    with random skip, pose interpolation 0.5, yaw augmentation pi,
+    65536 points with int16 transfer; icp_iter 6), then, for this run,
+    ``loss.warmup_steps`` 1 (steps 0 and 1 warm up) and
+    ``train.steps_per_eval`` 2."""
+    cfg = PipelineCfg()
+    return cfg.replace(
+        middle=dataclasses.replace(cfg.middle, name="PillarMiddleCov"),
+        data=dataclasses.replace(
+            cfg.data, skip=2, random_skip=True, pose_interp_ratio=0.5,
+            yaw_aug_rad=math.pi, max_points=65536, quantize_transfer=True),
+        loss=dataclasses.replace(cfg.loss, icp_iter=6, warmup_steps=1),
+        train=dataclasses.replace(cfg.train, steps_per_eval=2))
+
+
+def pillar_flops(middle):
+    """(encoder, decoder) FLOPs of one frame's pillar convs (2 x MACs),
+    from the module's widths, strides and grid."""
+    _, h, w = middle.sparse_shape
+    ny, nx = h, w
+    enc = 0
+    for conv in middle._encoder:
+        c = conv.Conv_0
+        s = c.stride[0]
+        h, w = -(-h // s), -(-w // s)
+        enc += 2 * h * w * c.out_channels * c.in_channels * 9
+    dec = sum(2 * ny * nx * m.Conv_0.out_channels * m.Conv_0.in_channels * 9
+              for m in (middle.Conv2dBNRelu_10, middle.Conv2dBNRelu_11))
+    return enc, dec
+
+
+class StepRecorder:
+    """Stands in for ``train.loop.train_step`` while a train verb runs:
+    each step's launches (the counts' change across it), its warmup
+    flag, its host ms (synchronized on both sides) and the first batch
+    it was given."""
+
+    def __init__(self, loop, counts, torch):
+        self.loop, self.counts, self.torch = loop, counts, torch
+        self.step = loop.train_step
+        self.records, self.batch = [], None
+
+    def __call__(self, state, batch, *args, warmup, **kw):
+        torch = self.torch
+        if self.batch is None:
+            self.batch = batch
+        torch.cuda.synchronize()
+        before = self.counts()
+        t0 = time.perf_counter()
+        out = self.step(state, batch, *args, warmup=warmup, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = self.counts()
+        self.records.append((warmup, {k: after[k] - before[k]
+                                      for k in after}, ms))
+        return out
+
+    def __enter__(self):
+        self.loop.train_step = self
+        return self
+
+    def __exit__(self, *exc):
+        self.loop.train_step = self.step
 
 
 def predicted_launches(ops, cfg, warmup):
@@ -988,12 +1093,15 @@ def overflow_audit(label, geo, band_overflow_counts, share=None):
 
 def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
                        reset_counts, counts, prepare_example, vcfg, dev,
-                       smi_line, np, torch):
-    """Phase 14 on one engine: the CLI's evaluate verb, in this process
-    and with its default device, on ``model_dir``'s latest checkpoint;
-    every eval step is recorded (its launches, and window 0's odometry
-    and batch).  Returns the launches of the whole run."""
+                       smi_line, np, torch, ckpt_step=None):
+    """Phase 14 on one engine (phase 17: the pillar middle, whose
+    ``kernel`` is None: it launches none): the CLI's evaluate verb, in
+    this process and with its default device, on ``model_dir``'s latest
+    checkpoint or ``--ckpt_step ckpt_step``; every eval step is recorded
+    (its launches, and window 0's odometry and batch).  Returns the
+    launches of the whole run."""
     windows = EVAL_WINDOWS[engine]
+    extra = [] if ckpt_step is None else ["--ckpt_step", str(ckpt_step)]
     cfg_path = os.path.join(model_dir, "eval_config.json")
     with open(cfg_path, "w") as fh:
         fh.write(cfg.to_json())
@@ -1016,7 +1124,7 @@ def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
     t0 = time.perf_counter()
     try:
         cli.main(["evaluate", "--config", cfg_path, "--model_dir", model_dir,
-                  "--synthetic", "--max_windows", str(windows)])
+                  "--synthetic", "--max_windows", str(windows)] + extra)
     finally:
         Trainer.eval_fn = eval_fn
     torch.cuda.synchronize()
@@ -1036,7 +1144,8 @@ def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
     if not all(math.isfinite(v) for v in frame.values()):
         fail(f"evaluate {engine}: non-finite frame-level metrics {frame}")
     want = dict.fromkeys(counted, 0)
-    want[kernel] = 2 * ENCODER_CONVS
+    if kernel is not None:
+        want[kernel] = 2 * ENCODER_CONVS
     bad = [i for i, (c, _, _) in enumerate(steps) if c != want]
     if bad:
         fail(f"evaluate {engine}: window {bad[0]} launched "
@@ -1047,7 +1156,10 @@ def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
     # window 0 against the checkpoint's two-frame forward (the
     # covariance decoder on) on the same collated points
     tr = Trainer(cfg, model_dir, dev)
-    tr.init_state()
+    if ckpt_step == "best":
+        with open(os.path.join(model_dir, "best_ckpt.json")) as fh:
+            ckpt_step = json.load(fh)["step"]
+    tr.init_state(ckpt_step=ckpt_step)
     batch = steps[0][2]
     ex = prepare_example(batch["points"][0].to(dev),
                          batch["point_mask"][0].to(dev), vcfg,
@@ -1082,8 +1194,10 @@ def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
             f"{step_ms:.3f} ms/window of host clock")
     meta = res["_meta"]
     ms_window = meta["elapsed_s"] / max(windows - 1, 1) * 1e3
-    say(f"[evaluate {engine}] {windows} windows, {want[kernel]} {kernel} "
-        f"launches each and no other kernel; frame-level errors "
+    say(f"[evaluate {engine}] {windows} windows, " + (
+        "no kernel launched" if kernel is None else
+        f"{want[kernel]} {kernel} launches each and no other kernel")
+        + "; frame-level errors "
         f"{res['avg']['frame_t_err_m']:.4f} m, "
         f"{res['avg']['frame_q_err_deg']:.4f} deg")
     say(f"[time] evaluate {engine}: {meta['frames_per_s']:.3f} frames/s, "
@@ -1092,6 +1206,265 @@ def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
         f"10, host clock); the whole CLI run {run_s:.2f} s; {smi_line}")
     tr.logger.close()
     return total
+
+
+def pillar_and_verb_phases(pcfg, train_config, rb_ops, frames, dev,
+                           smi_line, counted, reset_counts, counts, evaluate,
+                           np, torch, shapes=(PILLAR_IMAGE, PILLAR_BEV)):
+    """Phases 15-18: the pillar configuration ``pcfg`` streamed, trained
+    through the CLI's train verb in two legs and evaluated at its best
+    checkpoint; then the train verb on ``train_config`` warm-started
+    from the pillar run.  ``evaluate(engine, model_dir, kernel, cfg,
+    vcfg=, ckpt_step=)`` is phase 14's ``evaluate_and_check``.  Returns
+    each path's launches by kernel."""
+    from rslo_tpu_torch import cli
+    from rslo_tpu_torch.config.schema import PipelineCfg
+    from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
+    from rslo_tpu_torch.eval.streaming import StreamingOdometry
+    from rslo_tpu_torch.geometry import np_compose_pose
+    from rslo_tpu_torch.models.net import OdomNet
+    from rslo_tpu_torch.train import loop as train_loop
+    from rslo_tpu_torch.train.checkpoint import CheckpointManager
+    from rslo_tpu_torch.train.loop import Trainer
+    from rslo_tpu_torch.train.step import train_step
+    # -- 15. the pillar configuration: shapes, work and streaming ----------
+    pvcfg = voxelizer_config(pcfg)
+    pnet = OdomNet(pcfg, torch.Generator().manual_seed(SEED)).to(dev).eval()
+
+    def pillar_example(scans):
+        pts = torch.as_tensor(np.stack(scans), device=dev)
+        return prepare_example(pts, torch.ones(pts.shape[:2], dtype=bool,
+                                               device=dev),
+                               pvcfg, mean_mode=True)
+
+    with torch.no_grad():
+        ex = pillar_example(frames[:1])
+        fargs = (ex["voxel_features"][0], ex["coords"][0],
+                 ex["voxel_mask"][0])
+        img_shape = tuple(pnet.middle.pillar_image(*fargs).shape)
+        bev_shape = tuple(pnet.frame_features(*fargs, with_cov=False)[0]
+                          .shape)
+    if (img_shape, bev_shape) != shapes:
+        fail(f"pillar: image {img_shape}, BEV {bev_shape}; expected "
+             f"{shapes}")
+    enc_flops, dec_flops = pillar_flops(pnet.middle)
+    c0, c1, c2, _ = pcfg.middle.channels
+    concat_mb = img_shape[0] * img_shape[1] * (2 * c1 + 2 * c2) * 2 / 1e6
+    say(f"[pillar] image {img_shape}, BEV {bev_shape}; a frame's convs: "
+        f"encoder {enc_flops / 1e9:.1f} GFLOP, with the decoder "
+        f"{(enc_flops + dec_flops) / 1e9:.1f} GFLOP (bounds at "
+        f"{PEAK_FLOPS['bf16'] / 1e12:.0f} TFLOP/s bf16: "
+        f"{bound_ms(0, enc_flops)[0]:.3f} / "
+        f"{bound_ms(0, enc_flops + dec_flops)[0]:.3f} ms); a 3-frame train "
+        f"step {3 * 3 * (enc_flops + dec_flops) / 1e12:.2f} TFLOP in the "
+        f"middle (forward + 2x backward); the decoder's full-resolution "
+        f"concat {2 * c1 + 2 * c2} channels, {concat_mb:.0f} MB bf16")
+    pstream = StreamingOdometry(pnet, pcfg, dev)
+    reset_counts()
+    for scan in frames:
+        pstream.push(scan)
+    torch.cuda.synchronize()
+    pillar_stream_launches = counts()
+    poses = np.stack(pstream.trajectory)
+    say(f"[pillar stream] {N_SCANS} scans, launches "
+        f"{pillar_stream_launches}; last pose "
+        f"{np.array2string(poses[-1], precision=5)}")
+    if any(pillar_stream_launches.values()):
+        fail(f"pillar stream: a kernel launched: {pillar_stream_launches}")
+    if poses.shape != (N_SCANS, 7) or not np.isfinite(poses).all():
+        fail(f"pillar stream: bad trajectory {poses.shape}: {poses}")
+    with torch.no_grad():
+        two = pnet(pillar_example(frames[:2]))["odometry"][0].cpu().numpy()
+    expect = np_compose_pose(poses[0][None], two[None])[0]
+    say(f"[pillar stream] pose after scan 2 "
+        f"{np.array2string(poses[1], precision=6)} vs two-frame forward "
+        f"{np.array2string(expect, precision=6)}; max |diff| "
+        f"{np.abs(poses[1] - expect).max():.3e}")
+    if not np.allclose(poses[1], expect, **POSE_TOL):
+        fail("pillar stream: pose after scan 2 != two-frame forward")
+    pstream = StreamingOdometry(pnet, pcfg, dev)
+    for scan in frames[:3]:                   # warm-up
+        pstream.push(scan)
+    scans = iter(frames * 3)
+    pillar_stream_ms = median_ms(lambda: pstream.push(next(scans)), 20,
+                                 torch)
+    prof = profile_device([lambda scan=scan: pstream.push(scan)
+                           for scan in frames[3:7]], torch)
+    say(f"[time] pillar streaming {pillar_stream_ms:.3f} ms/scan "
+        f"({1e3 / pillar_stream_ms:.2f} scans/s), median of 20 after "
+        f"warm-up; {smi_line}")
+    if prof is not None:
+        say(f"[profile] pillar streaming, torch.profiler over 4 pushes: "
+            f"{prof['device_ms']:.3f} ms/scan of device work in "
+            f"{prof['ops']:.0f} device ops; against the "
+            f"{pillar_stream_ms:.3f} ms/scan measured above, the device "
+            f"idles {1 - prof['device_ms'] / pillar_stream_ms:.1%}")
+        for name, ms, n in prof["top"]:
+            say(f"  {ms:8.3f} ms/scan  {n:6.1f} ops/scan  {name}")
+    else:
+        say("[profile] pillar streaming: the trace holds no device events")
+    del pstream, pnet
+
+    # -- 16. the pillar train verb: two legs with the periodic eval --------
+    shutil.rmtree(PILLAR_DIR, ignore_errors=True)
+    os.makedirs(PILLAR_DIR)
+    pcfg_path = os.path.join(PILLAR_DIR, "pillar_config.json")
+    with open(pcfg_path, "w") as fh:
+        fh.write(pcfg.to_json())
+    pdir = os.path.join(PILLAR_DIR, "model")
+    argv = ["train", "--config", pcfg_path, "--model_dir", pdir,
+            "--synthetic", "--steps", str(PILLAR_STEPS)]
+    reset_counts()
+    t0 = time.perf_counter()
+    with StepRecorder(train_loop, counts, torch) as rec:
+        legs = [cli.main(argv + ["--leg_until", str(PILLAR_LEG)]).step,
+                cli.main(argv).step]
+    torch.cuda.synchronize()
+    verb_s = time.perf_counter() - t0
+    pillar_train_launches = counts()
+    if legs != [PILLAR_LEG, PILLAR_STEPS] or len(rec.records) != \
+            PILLAR_STEPS:
+        fail(f"pillar train verb: legs ended at {legs}, "
+             f"{len(rec.records)} steps recorded")
+    for k, (warm, got, ms) in enumerate(rec.records):
+        want = dict.fromkeys(counted, 0)
+        want["nn_search"] = (pcfg.loss.warmup_icp_iter if warm
+                             else pcfg.loss.icp_iter)
+        say(f"[pillar train] step {k} ({'warmup' if warm else 'post-warmup'}"
+            f"): {ms:.3f} ms (host clock, synchronized), launches {got}")
+        if warm != (k <= pcfg.loss.warmup_steps) or got != want:
+            fail(f"pillar train step {k}: warmup {warm}, launches {got}; "
+                 f"predicted {want}")
+    in_steps = {k: sum(c[k] for _, c, _ in rec.records) for k in counted}
+    if in_steps != pillar_train_launches:
+        fail(f"pillar train verb: launches outside the steps (the eval "
+             f"hook): {pillar_train_launches} against {in_steps}")
+    with open(os.path.join(pdir, "log.json.lst")) as fh:
+        evals = [json.loads(line)["step"] for line in fh
+                 if "eval/frame_t_err_m" in line]
+    with open(os.path.join(pdir, "best_ckpt.json")) as fh:
+        best = json.load(fh)
+    kept = sorted(os.listdir(os.path.join(pdir, "ckpt_best")))
+    with open(os.path.join(pdir, "log.txt")) as fh:
+        resumed = f"restored checkpoint at step {PILLAR_LEG}" in fh.read()
+    say(f"[pillar train] the verb in two legs ({' -> '.join(map(str, legs))}"
+        f", resumed: {resumed}) in {verb_s:.2f} s; the eval hook at steps "
+        f"{evals}; best_ckpt.json step {best['step']} "
+        f"({best['metric_name']} {best['metric']:.4f}), ckpt_best/ {kept}")
+    if evals != list(range(2, PILLAR_STEPS + 1, 2)) or not resumed or \
+            kept != [f"step_{best['step']}.pt"]:
+        fail("pillar train verb: eval hook, best checkpoint or resume "
+             "missing")
+    ptr = Trainer(pcfg, pdir, dev)
+    pst = ptr.init_state()
+    pbatch = rec.batch
+    torch.cuda.synchronize()
+    live_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+    torch.cuda.reset_peak_memory_stats(dev)
+    pillar_step_ms = {}
+    for warm in (True, False):
+        train_step(pst, pbatch, pcfg, ptr.optimizer, warmup=warm)  # warm-up
+        pillar_step_ms[warm] = median_ms(lambda: train_step(
+            pst, pbatch, pcfg, ptr.optimizer, warmup=warm), 5, torch)
+    pillar_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    say(f"[time] pillar train step, full width, 3 frames: warmup "
+        f"{pillar_step_ms[True]:.3f} ms, post-warmup "
+        f"{pillar_step_ms[False]:.3f} ms (median of 5 after one warm-up "
+        f"step each); peak device memory {pillar_peak:.1f} MiB, "
+        f"{pillar_peak - live_mib:.1f} MiB above the {live_mib:.1f} MiB "
+        f"live before the steps; {smi_line}")
+    prof = profile_device([lambda: train_step(pst, pbatch, pcfg,
+                                              ptr.optimizer, warmup=False)],
+                          torch)
+    if prof is not None:
+        say(f"[profile] pillar train step, post-warmup: "
+            f"{prof['device_ms']:.3f} ms of device work in "
+            f"{prof['ops']:.0f} device ops; against "
+            f"{pillar_step_ms[False]:.3f} ms a step the device idles "
+            f"{1 - prof['device_ms'] / pillar_step_ms[False]:.1%}")
+        for name, ms, n in prof["top"]:
+            say(f"  {ms:8.3f} ms/step  {n:6.1f} ops/step  {name}")
+    ptr.logger.close()
+    del ptr, pst
+
+    # -- 17. evaluate --ckpt_step best on the pillar run -------------------
+    pillar_eval_launches = evaluate("pillar", pdir, None, pcfg, vcfg=pvcfg,
+                                    ckpt_step="best")
+
+    # -- 18. the train verb on the shipped config, warm-started -----------
+    with open(train_config) as fh:
+        scfg = PipelineCfg.from_json(fh.read())
+    shutil.rmtree(VERB_DIR, ignore_errors=True)
+    fresh = Trainer(scfg, os.path.join(VERB_DIR, "fresh"), dev)
+    seeded = {k: v.cpu().clone()
+              for k, v in fresh.init_state().model.state_dict().items()}
+    fresh.logger.close()
+    del fresh
+    start = {}
+    fit = Trainer.fit
+
+    def recording_fit(self, batches_, state_, **kw):
+        start["model"] = {k: v.cpu().clone()
+                          for k, v in state_.model.state_dict().items()}
+        start["alphas"] = {k: v.detach().cpu().clone()
+                           for k, v in state_.alphas.items()}
+        return fit(self, batches_, state_, **kw)
+
+    Trainer.fit = recording_fit
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with StepRecorder(train_loop, counts, torch) as vrec:
+            vstate = cli.main([
+                "train", "--config", train_config, "--model_dir",
+                os.path.join(VERB_DIR, "model"), "--synthetic", "--steps",
+                str(VERB_STEPS), "--pretrained", pdir,
+                "--pretrained_include", "bev_net"])
+    finally:
+        Trainer.fit = fit
+    torch.cuda.synchronize()
+    verb_s = time.perf_counter() - t0
+    verb_launches = counts()
+    raw = CheckpointManager.restore_raw_from(pdir)
+    bev_keys = [k for k in start["model"] if k.startswith("bev_net.")]
+    mid_keys = [k for k in start["model"] if k.startswith("middle.")]
+    moved = [k for k in bev_keys
+             if not torch.equal(start["model"][k], raw["model"][k].cpu())]
+    reinit = [k for k in mid_keys
+              if not torch.equal(start["model"][k], seeded[k])]
+    alphas = [k for k, v in raw["alphas"].items()
+              if not torch.equal(start["alphas"][k], v.cpu())]
+    say(f"[train verb] {os.path.basename(train_config)} warm-started from "
+        f"the pillar "
+        f"run (--pretrained_include bev_net): at step 0 "
+        f"{len(bev_keys) - len(moved)} of {len(bev_keys)} bev_net tensors "
+        f"equal the pillar checkpoint's, {len(mid_keys) - len(reinit)} of "
+        f"{len(mid_keys)} middle tensors keep the seeded init, "
+        f"{len(raw['alphas']) - len(alphas)} of {len(raw['alphas'])} "
+        f"alphas carried")
+    if moved or reinit or alphas or not bev_keys or not mid_keys:
+        fail(f"train verb warm start: bev_net {moved[:3]}, middle "
+             f"{reinit[:3]}, alphas {alphas}")
+    if vstate.step != VERB_STEPS or len(vrec.records) != VERB_STEPS:
+        fail(f"train verb: ended at {vstate.step}, {len(vrec.records)} "
+             f"steps recorded")
+    for k, (warm, got, ms) in enumerate(vrec.records):
+        want = predicted_launches(rb_ops, scfg, warm)
+        say(f"[train verb] step {k} ({'warmup' if warm else 'post-warmup'}"
+            f"): {ms:.3f} ms (host clock, synchronized), launches {got}")
+        if warm != (k <= scfg.loss.warmup_steps) or got != want:
+            fail(f"train verb step {k}: launches {got}, predicted {want}")
+    if {k: sum(c[k] for _, c, _ in vrec.records) for k in counted} != \
+            verb_launches:
+        fail(f"train verb: launches outside the steps: {verb_launches}")
+    say(f"[train verb] {VERB_STEPS} steps through cli.main in {verb_s:.2f} s "
+        f"(model init, loader and first step included); {smi_line}")
+    shutil.rmtree(PILLAR_DIR, ignore_errors=True)
+    shutil.rmtree(VERB_DIR, ignore_errors=True)
+    return {"pillar_stream_launches": pillar_stream_launches,
+            "pillar_train_launches": pillar_train_launches,
+            "pillar_eval_launches": pillar_eval_launches,
+            "train_verb_launches": verb_launches}
 
 
 def main():
@@ -2273,6 +2646,15 @@ def main():
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     shutil.rmtree(BAND_TRAIN_DIR, ignore_errors=True)
 
+    # -- 15-18. the pillar configuration and the train verb ----------------
+    more = pillar_and_verb_phases(
+        pillar_config(PipelineCfg), TRAIN_CONFIG, rb_ops, frames, dev,
+        smi_line, counted, reset_counts, counts,
+        lambda *a, **kw: evaluate_and_check(
+            *a, cli, Trainer, counted, reset_counts, counts,
+            prepare_example, kw.pop("vcfg"), dev, smi_line, np, torch, **kw),
+        np, torch)
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -2286,6 +2668,11 @@ def main():
                      "library_ms": row["library_ms"],
                      # launches in phase 14's evaluations, both engines
                      "eval_launches": eval_launches[name],
+                     # launches on the paths of phases 15-18: pillar
+                     # streaming, the pillar train verb (both legs, the
+                     # eval hook included), evaluate --ckpt_step best on
+                     # it, and the train verb on kitti_train_ours.json
+                     **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the
                      # fused d_W im2col; band_gather: the fused d_W

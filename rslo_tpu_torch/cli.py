@@ -1,17 +1,22 @@
-"""Command-line entry point of the port (counterpart of
-``rslo_tpu/cli.py``; only the ``evaluate`` verb is ported so far):
+"""Command-line entry points of the port (counterpart of
+``rslo_tpu/cli.py``; the ``train`` and ``evaluate`` verbs):
 
+    python -m rslo_tpu_torch.cli train --config cfg.json --model_dir runs/x
     python -m rslo_tpu_torch.cli evaluate --config cfg.json --model_dir runs/x
 
-It evaluates the model dir's latest checkpoint (``--ckpt_step N`` or
-``best`` for another; the seeded initial weights where there is none)
-on the val split, writes ``eval_results.json`` into the model dir and
-prints it.  ``--synthetic`` swaps the KITTI store for the generated
-scene.  The run is on the CUDA card unless ``--device cpu`` is given.
+``train`` trains on the train split from the model dir's latest
+checkpoint (or a fresh or warm-started state), with a periodic eval
+that keeps the best checkpoint.  ``evaluate`` evaluates the model dir's
+latest checkpoint (``--ckpt_step N`` or ``best`` for another; the
+seeded initial weights where there is none) on the val split, writes
+``eval_results.json`` into the model dir and prints it.
+``--synthetic`` swaps the KITTI store for the generated scene.  Both
+run on the CUDA card unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib.util
 import json
 import math
@@ -108,6 +113,128 @@ def update_best_checkpoint(model_dir, step_i: int, avg: dict):
     return key_name, key
 
 
+def _plot_dir(logger, path: str):
+    """``path``, or None (with one log line) where matplotlib is
+    missing."""
+    if importlib.util.find_spec("matplotlib") is None:
+        logger.log_text("matplotlib is not installed: trajectory plots "
+                        "skipped")
+        return None
+    return path
+
+
+def cmd_train(args):
+    """Train one card for ``--steps`` (or the config's), resuming from
+    the model dir's latest checkpoint and the data stream where it left
+    off; with ``--leg_until`` stop at that step while the schedule and
+    the stream still span the whole run.  Every ``steps_per_eval`` steps
+    a checkpoint is written and the val split evaluated (256 windows);
+    the best step by ``update_best_checkpoint`` is recorded in
+    ``best_ckpt.json`` and copied to ``ckpt_best/``.  The JAX verb's
+    multi-host setup and data mesh reduce to this one card
+    (data-parallel training is ROADMAP A13)."""
+    import torch
+
+    from .data.dataset import DATASETS
+    from .data.loader import DataLoader
+    from .train.loop import Trainer
+    from .train.step import prepare_batch
+
+    cfg = _load_cfg(args.config)
+    if args.steps:
+        cfg = cfg.replace(train=dataclasses.replace(cfg.train,
+                                                    steps=args.steps))
+    trainer = Trainer(cfg, args.model_dir, device=args.device,
+                      self_supervised=not args.supervised)
+    trainer.logger.log_text(f"config:\n{cfg.to_json()}")
+    if args.synthetic:
+        dataset = _synthetic_dataset(cfg, "train")
+    else:
+        dataset = DATASETS[cfg.data.dataset](cfg.data, "train")
+    # resume the data stream where the checkpoint left it
+    resume_step = trainer.ckpt.latest_step() or 0
+    loader = DataLoader(dataset, cfg.data, 1, cfg.train.steps, train=True,
+                        seed=cfg.train.seed, last_iter=resume_step - 1)
+
+    def unbatched(b):
+        """The loader's batch of one sample, as train_step takes it."""
+        return {k: v[0] for k, v in b.items() if k != "meta"}
+
+    try:
+        stream = iter(loader)
+        first = unbatched(next(stream))
+        state = trainer.init_state(
+            pretrained=args.pretrained,
+            pretrained_include=args.pretrained_include,
+            pretrained_exclude=args.pretrained_exclude)
+
+        def batches():
+            yield first
+            for b in stream:
+                yield unbatched(b)
+
+        if args.synthetic:
+            eval_ds = _synthetic_dataset(cfg, "val", n_windows=16)
+        else:
+            try:
+                # KITTI metrics are over consecutive frames: the periodic
+                # val walk pins skip=1 whatever stride training uses
+                eval_ds = DATASETS[cfg.data.dataset](
+                    dataclasses.replace(cfg.data, skip=1), "val",
+                    seq_length=2)
+            except Exception:
+                eval_ds = None
+
+        def eval_hook(tr, st, step_i):
+            if eval_ds is None:
+                return
+            from .eval.runner import run_eval
+            res = run_eval(tr.eval_fn(), eval_ds, cfg, tr.logger,
+                           max_windows=256, plot_dir=_plot_dir(
+                               tr.logger,
+                               f"{args.model_dir}/plots/step_{step_i}"))
+            if "avg" in res:
+                tr.logger.log_metrics({"eval": res["avg"]}, step_i)
+                # evaluate --ckpt_step best reads this back
+                written = update_best_checkpoint(args.model_dir, step_i,
+                                                 res["avg"])
+                if written is not None:
+                    tr.ckpt.preserve(step_i)  # survives max_to_keep
+                    tr.logger.log_text(
+                        f"new best checkpoint: step {step_i} "
+                        f"({written[0]}={written[1]:.3f})")
+            # the tq-map, confidence and input-mask images of an
+            # eval-mode forward on the first batch
+            was_training = tr.net.training
+            try:
+                tr.net.eval()
+                with torch.no_grad():
+                    raw = {k: torch.as_tensor(v).to(tr.device)
+                           for k, v in first.items()}
+                    preds = tr.net(prepare_batch(raw, cfg), with_cov=False)
+                tq = preds["tq_map"][0].float()
+                for tag, img in (
+                        ("tq_map/translation_norm",
+                         torch.linalg.norm(tq[..., :3], dim=-1)),
+                        ("conf/translation", preds["t_conf"][0, ..., 0]),
+                        ("conf/rotation", preds["q_conf"][0, ..., 0]),
+                        ("feature_mask", preds["input_mask"][0, ..., 0])):
+                    tr.logger.log_image(tag, img.float().cpu().numpy(),
+                                        step_i)
+            except Exception as e:      # never let images stop training
+                tr.logger.log_text(f"image logging failed: {e}")
+            finally:
+                tr.net.train(was_training)
+
+        state = trainer.fit(batches(), state, eval_hook=eval_hook,
+                            max_steps=args.leg_until or args.steps)
+        trainer.logger.log_text(f"done at step {state.step}")
+    finally:
+        loader.close()
+        trainer.logger.close()
+    return state
+
+
 def cmd_evaluate(args) -> dict:
     if args.refine or args.refine_ba or args.refine_loops:
         raise NotImplementedError(
@@ -141,11 +268,8 @@ def cmd_evaluate(args) -> dict:
                 f"evaluating best checkpoint: step {ckpt_step} "
                 f"({best['metric_name']}={best['metric']:.3f})")
         trainer.init_state(ckpt_step=ckpt_step)
-        plot_dir = str(Path(args.model_dir) / "plots")
-        if importlib.util.find_spec("matplotlib") is None:
-            trainer.logger.log_text("matplotlib is not installed: "
-                                    "trajectory plots skipped")
-            plot_dir = None
+        plot_dir = _plot_dir(trainer.logger,
+                             str(Path(args.model_dir) / "plots"))
         results = run_eval(trainer.eval_fn(), dataset, cfg, trainer.logger,
                            max_windows=args.max_windows, plot_dir=plot_dir)
     finally:
@@ -159,6 +283,26 @@ def cmd_evaluate(args) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rslo_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    t = sub.add_parser("train")
+    t.add_argument("--config", default=None)
+    t.add_argument("--model_dir", required=True)
+    t.add_argument("--steps", type=int, default=None)
+    t.add_argument("--leg_until", type=int, default=None,
+                   help="stop this process at the given step while the "
+                        "LR schedule/loader still span the full --steps "
+                        "run (the next process resumes from the "
+                        "checkpoint)")
+    t.add_argument("--synthetic", action="store_true")
+    t.add_argument("--supervised", action="store_true")
+    t.add_argument("--pretrained", default=None,
+                   help="warm-start from another run's model dir "
+                        "(shape-matching leaves only)")
+    t.add_argument("--pretrained_include", default=None)
+    t.add_argument("--pretrained_exclude", default=None)
+    t.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    t.set_defaults(fn=cmd_train)
 
     e = sub.add_parser("evaluate")
     e.add_argument("--config", default=None)

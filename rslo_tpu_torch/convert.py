@@ -8,6 +8,8 @@ leaf's dotted path is its torch name, with these layout changes:
   * flax ``nn.Conv`` kernels (the only 4-D leaves) go from HWIO
     (kh, kw, Cin/groups, Cout) to torch's OIHW (Cout, Cin/groups, kh, kw)
     and are named ``weight``;
+  * flax ``nn.Dense`` kernels (the only 2-D ones) go from (in, out) to
+    ``nn.Linear``'s (out, in) ``weight``;
   * sparse-conv kernels stay (K, Cin, Cout);
   * BN ``scale``/``bias`` params and ``mean``/``var`` statistics map
     one to one.
@@ -44,9 +46,9 @@ def state_dict_from_flax(variables: Mapping) -> Dict[str, torch.Tensor]:
     for col in ("params", "batch_stats"):
         for path, leaf in _flatten(variables.get(col, {})):
             arr = np.asarray(leaf, dtype=np.float32)
-            if path[-1] == "kernel" and arr.ndim == 4:
+            if path[-1] == "kernel" and arr.ndim in _WEIGHT_NDIMS:
                 path = path[:-1] + ("weight",)
-                arr = arr.transpose(3, 2, 0, 1)
+                arr = arr.transpose(*_FROM_FLAX[arr.ndim])
             name = ".".join(path)
             if name in out:
                 raise ValueError(f"flax leaf {col}/{'/'.join(path)} maps to "
@@ -63,29 +65,36 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
 
 
 _STATS = ("mean", "var")
+# flax kernel layout -> torch weight layout, by rank: conv HWIO -> OIHW,
+# dense (in, out) -> (out, in); and back
+_FROM_FLAX = {4: (3, 2, 0, 1), 2: (1, 0)}
+_TO_FLAX = {4: (2, 3, 1, 0), 2: (1, 0)}
+_WEIGHT_NDIMS = tuple(_FROM_FLAX)
 
 
 def flax_path(name: str, ndim: int) -> Tuple[str, Tuple[str, ...]]:
     """The flax (collection, path) of the port's tensor ``name`` with
     ``ndim`` dimensions: BN running statistics live in "batch_stats",
-    everything else in "params"; a 4-D conv ``weight`` is a flax
-    ``kernel``."""
+    everything else in "params"; a 4-D conv or 2-D dense ``weight`` is
+    a flax ``kernel``."""
     path = tuple(name.split("."))
-    if path[-1] == "weight" and ndim == 4:
+    if path[-1] == "weight" and ndim in _WEIGHT_NDIMS:
         path = path[:-1] + ("kernel",)
     return ("batch_stats" if path[-1] in _STATS else "params"), path
 
 
 def to_flax_leaf(name: str, tensor: torch.Tensor) -> np.ndarray:
     """The port's tensor as a numpy array in the flax layout of
-    ``flax_path(name, tensor.dim())`` (OIHW conv weights -> HWIO)."""
+    ``flax_path(name, tensor.dim())`` (OIHW conv weights -> HWIO, dense
+    (out, in) -> (in, out))."""
     arr = tensor.detach().float().cpu().numpy()
-    if name.endswith(".weight") and arr.ndim == 4:
-        arr = arr.transpose(2, 3, 1, 0)
+    if name.endswith(".weight") and arr.ndim in _WEIGHT_NDIMS:
+        arr = arr.transpose(*_TO_FLAX[arr.ndim])
     return arr
 
 
 def is_flax_kernel(name: str, ndim: int) -> bool:
-    """True for the leaves flax names ``kernel`` (sparse-conv kernels
-    and dense conv weights): the only ones that take weight decay."""
+    """True for the leaves flax names ``kernel`` (sparse-conv kernels,
+    dense conv weights and dense-layer weights): the only ones that
+    take weight decay."""
     return flax_path(name, ndim)[1][-1] == "kernel"

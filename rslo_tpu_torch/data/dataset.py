@@ -7,7 +7,9 @@ targets.
     (stride ``skip``); camera poses are mapped to the LiDAR frame and
     all C(L,2) pairwise relative motions form the target vector
     (``generate_cyc_vo``);
-  * the known-corrupt frame (seq 19 frame 4148) is skipped.
+  * the known-corrupt frame (seq 19 frame 4148) is skipped;
+  * ``sample(idx, rng)`` is the train-time fetch with a random window
+    stride (``DataCfg.random_skip``).
 
 ``DATASETS`` maps ``cfg.data.dataset`` to its class.
 """
@@ -59,6 +61,8 @@ class KittiWindowDataset:
                     continue
                 self.index.append((s, i))
 
+    supports_random_skip = True
+
     def __len__(self):
         return len(self.index)
 
@@ -66,8 +70,30 @@ class KittiWindowDataset:
         s, start = self.index[idx]
         return s, [start + k * self.skip for k in range(self.seq_length)]
 
+    def sample(self, idx: int, rng: np.random.Generator) -> dict:
+        """Train-time fetch with a per-sample window stride: the window
+        keeps its start frame, its stride is drawn uniformly from
+        1..skip (or the signed range when skip < 0), and frames past
+        the sequence end clamp to its last frame."""
+        s, start = self.index[idx]
+        if self.skip > 0:
+            choices = np.arange(1, self.skip + 1)
+        else:
+            choices = np.concatenate([np.arange(self.skip, 0),
+                                      np.arange(1, -self.skip + 1)])
+        skip = int(rng.choice(choices))
+        n = self.readers[s].n_frames
+        frames = [min(max(start + k * skip, 0), n - 1)
+                  for k in range(self.seq_length)]
+        if any((s, fr) in CORRUPT for fr in frames):
+            return self[idx]
+        return self._load_window(s, frames)
+
     def __getitem__(self, idx: int) -> dict:
         s, frames = self.window_frames(idx)
+        return self._load_window(s, frames)
+
+    def _load_window(self, s: int, frames: list) -> dict:
         reader = self.readers[s]
         pts, poses, hier = [], [], []
         want_hier = self.cfg.load_hier_points

@@ -9,6 +9,7 @@ import torch
 
 from ..config.schema import PipelineCfg
 from ..ops.voxelize import VoxelizerConfig, voxelize_sorted_mean
+from .loader import quant_scale
 
 
 def voxelizer_config(cfg: PipelineCfg) -> VoxelizerConfig:
@@ -23,10 +24,21 @@ def voxelizer_config(cfg: PipelineCfg) -> VoxelizerConfig:
     )
 
 
+def dequantize_points(points: torch.Tensor) -> torch.Tensor:
+    """Undo the loader's int16 transfer quantization on the points'
+    device (float inputs pass through unchanged).  The scales are the
+    constants of ``data/loader.py::quant_scale``."""
+    if torch.is_floating_point(points):
+        return points
+    s = torch.as_tensor(quant_scale(points.shape[-1]), device=points.device)
+    return points.float() * s
+
+
 def prepare_example(points: torch.Tensor, point_mask: torch.Tensor,
                     vcfg: VoxelizerConfig,
                     mean_mode: bool = False) -> Dict[str, torch.Tensor]:
-    """points: (L, N, F) padded float frames; point_mask: (L, N) bool.
+    """points: (L, N, F) padded frames (float, or int16 transfer-quantized
+    and dequantized here); point_mask: (L, N) bool.
     Returns the voxelized example consumed by OdomNet (no batch dim)
     with pre-encoded per-voxel mean features (``voxel_features``); the
     normal columns 4:7 are re-normalized after averaging."""
@@ -34,9 +46,7 @@ def prepare_example(points: torch.Tensor, point_mask: torch.Tensor,
         raise NotImplementedError(
             "only mean-mode preparation (the SimpleVoxelXYZINormal VFE) "
             "is ported; the (V, P, F) point-stack path is not")
-    if not torch.is_floating_point(points):
-        raise NotImplementedError(
-            "int16 transfer-quantized points are not ported")
+    points = dequantize_points(points)
     vox = [voxelize_sorted_mean(points[t], point_mask[t], vcfg)
            for t in range(points.shape[0])]
     feats = []

@@ -1,6 +1,9 @@
-"""Top-level odometry network: mean VFE features -> sparse middle (+cov)
--> BEV pair encoder/decoder -> ego-motion vote (counterpart of
-``rslo_tpu/models/net.py``; mean-mode examples).
+"""Top-level odometry network: mean VFE features -> middle (+cov) ->
+BEV pair encoder/decoder -> ego-motion vote (counterpart of
+``rslo_tpu/models/net.py``; mean-mode examples).  The middle is
+``cfg.middle.name``: ``SparseMiddleCov`` (sparse convs over per-frame
+geometry) or ``PillarMiddleCov`` (dense 2-D convs over a pillar image,
+no geometry).
 
 A new ``OdomNet`` is in eval mode; a trainer calls ``.train()``, which
 switches every BN to batch statistics and makes the sparse convs
@@ -21,6 +24,7 @@ from ..config.schema import PipelineCfg, grid_size
 from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
                      build_band_geometry, build_geometry)
+from .middle_pillar import PillarMiddleCov
 
 
 # flax's truncated_normal: N(0, 1) cut at +-2, then scaled by
@@ -47,11 +51,14 @@ class OdomNet(nn.Module):
     def __init__(self, cfg: PipelineCfg,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.middle.name != "SparseMiddleCov":
+        self.cfg = cfg
+        if cfg.middle.name == "PillarMiddleCov":
+            self.middle = PillarMiddleCov(cfg.middle, self.sparse_shape)
+        elif cfg.middle.name == "SparseMiddleCov":
+            self.middle = SparseMiddleCov(cfg.middle)
+        else:
             raise NotImplementedError(
                 f"middle {cfg.middle.name!r} is not ported yet")
-        self.cfg = cfg
-        self.middle = SparseMiddleCov(cfg.middle)
         self.bev_net = BEVOdomNet(cfg.odom,
                                   cfg.voxelizer.point_cloud_range)
         self.reset_parameters(generator)
@@ -67,8 +74,9 @@ class OdomNet(nn.Module):
         """Random init drawn from ``generator``, with flax's
         initializers: He-normal sparse-conv kernels (fan_in = taps*Cin,
         scale 2), LeCun-normal dense convs (fan_in = kh*kw*Cin/groups,
-        scale 1), both truncated normals; zero biases (identity pose
-        for the 7-channel tq heads), unit BN scales and statistics."""
+        scale 1) and dense layers (fan_in = in_features), all truncated
+        normals; zero biases (identity pose for the 7-channel tq heads),
+        unit BN scales and statistics."""
         for mod in self.modules():
             if isinstance(mod, SpConv):
                 taps, cin, _ = mod.kernel.shape
@@ -79,6 +87,10 @@ class OdomNet(nn.Module):
                                   generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
+            elif isinstance(mod, nn.Linear):
+                truncated_normal_(mod.weight, 1.0 / mod.in_features,
+                                  generator)
+                mod.bias.zero_()
             elif isinstance(mod, (MaskedBatchNorm, Norm)) and \
                     hasattr(mod, "scale"):
                 mod.scale.fill_(1.0)
@@ -143,6 +155,8 @@ class OdomNet(nn.Module):
                        with_cov: bool = True):
         """Encode one frame: (V, F) features + coords -> (BEV (H, W, C),
         cov (V, 7), or None with ``with_cov=False``)."""
+        if isinstance(self.middle, PillarMiddleCov):
+            return self.middle(voxel_features, coords, vmask, with_cov)
         geo = self._middle_geometry(coords, vmask, with_cov)
         return self.middle(voxel_features, geo, with_cov)
 

@@ -3,8 +3,8 @@
 checkpoint, then the step loop with the host-side warmup switch,
 periodic checkpoints and an eval hook.  Metrics go to ``Trainer.logger``
 (text, json-lines, TensorBoard events) and are kept in
-``Trainer.history``.  Warm-start surgery and the CLI ``train`` verb are
-not ported."""
+``Trainer.history``.  ``init_state`` can warm-start from another run
+(``utils/param_surgery.py``)."""
 from __future__ import annotations
 
 import functools
@@ -18,6 +18,7 @@ from ..config.schema import PipelineCfg
 from ..convert import is_flax_kernel
 from ..models.net import OdomNet
 from ..utils.logging import MetricLogger
+from ..utils.param_surgery import flatten, load_pretrained
 from .checkpoint import CheckpointManager
 from .optim import build_optimizer
 from .state import TrainState
@@ -55,9 +56,16 @@ class Trainer:
         self.net = None
         self.optimizer = None
 
-    def init_state(self, ckpt_step: Optional[int] = None) -> TrainState:
+    def init_state(self, pretrained: Optional[str] = None,
+                   pretrained_include: Optional[str] = None,
+                   pretrained_exclude: Optional[str] = None,
+                   ckpt_step: Optional[int] = None) -> TrainState:
         """A fresh state from ``cfg.train.seed``, or the checkpoint at
-        ``ckpt_step`` (the latest one when there is any)."""
+        ``ckpt_step`` (the latest one when there is any).  Without a
+        checkpoint, ``pretrained`` (another run's model dir) warm-starts
+        the state from that run's latest checkpoint: the parameters and
+        BN statistics whose flax paths pass the include/exclude regexes
+        and whose shapes match, and the loss alphas."""
         gen = torch.Generator().manual_seed(self.cfg.train.seed)
         self.net = OdomNet(self.cfg, gen).to(self.device).train()
         n_params = sum(p.numel() for p in self.net.parameters())
@@ -69,10 +77,27 @@ class Trainer:
             {"rot": self.cfg.loss.rotation_init_alpha,
              "trans": self.cfg.loss.translation_init_alpha})
         restored = self.ckpt.restore(state, step=ckpt_step)
-        if restored is None:
-            return state
-        self.logger.log_text(f"restored checkpoint at step {restored.step}")
-        return restored
+        if restored is not None:
+            self.logger.log_text(
+                f"restored checkpoint at step {restored.step}")
+            return restored
+        if pretrained is not None:
+            raw = self.ckpt.restore_raw_from(pretrained)
+            loaded = load_pretrained(
+                flatten(dict(self.net.named_parameters())),
+                flatten(raw["model"]), pretrained_include,
+                pretrained_exclude, strict_shapes=False)
+            loaded_s = load_pretrained(
+                flatten(dict(self.net.named_buffers()), "batch_stats"),
+                flatten(raw["model"], "batch_stats"), pretrained_include,
+                pretrained_exclude, strict_shapes=False)
+            with torch.no_grad():
+                for k, v in raw.get("alphas", {}).items():
+                    state.alphas[k].copy_(v)
+            self.logger.log_text(
+                f"warm-started {len(loaded)} param + {len(loaded_s)} "
+                f"stat leaves from {pretrained}")
+        return state
 
     def eval_fn(self, with_cov: bool = False):
         """``train.step.eval_step`` bound to this trainer's net, config

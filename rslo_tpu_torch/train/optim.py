@@ -9,8 +9,11 @@ leaves only (the sparse-conv kernels and the dense conv weights, never
 BN terms, biases or alphas), and a step of -lr from the OneCycle lr
 schedule.  The schedules are evaluated at the optimizer's own update
 count, as optax's ``inject_hyperparams`` does, and in f32 like the JAX
-schedules.  Per-module lr multipliers (``group_lr_mult``, empty in the
-shipped configs) are not ported.
+schedules.  ``group_lr_mult`` scales the final update of each trainable
+whose label contains a key (the first such key) by that key's
+multiplier, with the JAX package's labels: the top-level key of its
+trainable tree {"params": ..., "alphas": ...}, i.e. "params" for every
+model parameter and "alphas" for the loss alphas.
 """
 from __future__ import annotations
 
@@ -83,6 +86,18 @@ class AdamState:
         return cls(int(d["count"]), dict(d["mu"]), dict(d["nu"]))
 
 
+def group_label(cfg: OptimizerCfg, name: str) -> str:
+    """The ``group_lr_mult`` key whose multiplier scales the update of
+    the trainable ``name`` (``alphas.<key>`` for a loss alpha), or
+    "default" for none: the first key contained in the top-level key of
+    the JAX package's trainable tree, "params" or "alphas"."""
+    top = "alphas" if name.startswith("alphas.") else "params"
+    for key, _ in cfg.group_lr_mult:
+        if key in top:
+            return key
+    return "default"
+
+
 class OneCycleAdamW:
     """The optax chain of the JAX package's ``build_optimizer`` on a
     dict of named tensors.  ``decays(name)`` says whether a trainable
@@ -96,6 +111,7 @@ class OneCycleAdamW:
         self.b2 = 0.99
         self.eps = 1e-8
         self.decays = decays
+        self.mults = dict(cfg.group_lr_mult)
 
     def init(self, params: Dict[str, torch.Tensor]) -> AdamState:
         return AdamState(0, {k: torch.zeros_like(p) for k, p in
@@ -128,7 +144,11 @@ class OneCycleAdamW:
             u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
             if self.decays(name):
                 u = u + self.cfg.weight_decay * p
-            p.add_(-1.0 * lr * u)
+            u = -1.0 * lr * u
+            label = group_label(self.cfg, name)
+            if label != "default":
+                u = u * self.mults[label]
+            p.add_(u)
         state.count = count
         return g_norm
 
@@ -140,6 +160,4 @@ def build_optimizer(cfg: OptimizerCfg, train_cfg: TrainCfg,
     if cfg.optimizer != "adam":
         raise NotImplementedError(f"optimizer {cfg.optimizer!r} is not "
                                   f"ported; only 'adam'")
-    if cfg.group_lr_mult:
-        raise NotImplementedError("group_lr_mult is not ported")
     return OneCycleAdamW(cfg, train_cfg, decays)

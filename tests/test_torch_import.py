@@ -30,14 +30,15 @@ def test_port_modules_import_without_jax():
     assert out.returncode == 0, out.stderr
     n, leaked = out.stdout.split(" ", 1)
     # every subpackage and module of the port is walked, the CLI and the
-    # eval, data and logging modules among them
-    assert int(n) >= 45, out.stdout
+    # eval, data and logging modules among them, and the training data
+    # path, the pillar middle and the parameter surgery
+    assert int(n) >= 48, out.stdout
     assert leaked.strip() == "[]", out.stdout
 
 
 def test_port_cli_imports_without_jax():
     """``python -m rslo_tpu_torch.cli`` loads no JAX, h5py or
-    matplotlib, and shows its ``evaluate`` verb."""
+    matplotlib, and shows its ``train`` and ``evaluate`` verbs."""
     env = dict(os.environ, PYTHONPATH=REPO)
     code = ("import sys, rslo_tpu_torch.cli; print(sorted(m for m in "
             "sys.modules if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
@@ -50,6 +51,7 @@ def test_port_cli_imports_without_jax():
                             "--help"], cwd=REPO, env=env,
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "evaluate" in usage.stdout
+    assert "train" in usage.stdout
 
 
 def _imported_roots(path):
@@ -84,3 +86,28 @@ def test_port_sources_import_no_jax():
                 if hit:
                     bad[os.path.relpath(path, REPO)] = sorted(hit)
     assert not bad, bad
+
+
+_NEW_MODULES = ("rslo_tpu_torch.models.middle_pillar",
+                "rslo_tpu_torch.data.augment",
+                "rslo_tpu_torch.data.loader",
+                "rslo_tpu_torch.utils.param_surgery",
+                "rslo_tpu_torch.train.checkpoint")
+
+
+def test_training_modules_import_without_jax():
+    """The training entry point's modules, each in a fresh process:
+    no jax, flax, rslo_tpu, h5py or matplotlib loaded, and no import
+    statement of theirs names jax, flax or rslo_tpu."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in _NEW_MODULES:
+        code = (f"import sys, {name}; print(sorted(m for m in sys.modules "
+                f"if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
+                f"'h5py', 'matplotlib')))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "[]", (name, out.stdout)
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}
