@@ -13,8 +13,10 @@ defaults: block 256, windows (384, 1280, 768), min_channels 0, so every
 one of the 20 convs of a frame gets a band plan); then the pillar
 configuration streamed, trained through the CLI's ``train`` verb and
 evaluated at its best checkpoint, and the train verb on the shipped
-config warm-started from it.  Phases (each one exits non-zero when it
-fails):
+config warm-started from it; last, the refined evaluation (pose-graph
+fusion, bundle adjustment, loop closing) through the evaluate verb, and
+each refinement solver on the card against the CPU.  Phases (each one
+exits non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -125,6 +127,35 @@ fails):
      checkpoint's, the middle keeps its seeded init and the alphas are
      carried; each step's B1 (forward and dgrad), B2 and B3 launches
      equal ``predicted_launches``
+ 19. the refined evaluate verb from phase 10's rulebook checkpoint at
+     ``configs/kitti_eval_ours.json``, on the synthetic 3-frame split:
+     ``--refine`` (16 windows), ``--refine_ba`` (8) and ``--refine_loops
+     --loop_min_separation 10 --loop_score_threshold 0.7`` (16, at least
+     one candidate); ``eval_results.json`` with the JAX
+     package's keys and finite t_rel, r_rel and ATE for every
+     trajectory; exactly 42 B1 launches a window (3 frames x 14), 60
+     under ``--refine_ba`` (its eval step keeps the covariance decoder),
+     no other kernel but B3 under ``--refine_loops``, 8 launches (ICP
+     iterations) per candidate ICP measured; windows/s and ms/window,
+     the pose-graph fusion's ms a sequence, BA's ms a window (and its
+     solve alone) and loop closing's ms
+ 20. refinement on the card against the CPU: ``fuse_window_odometry``
+     (window 64, overlap 16, 8 iterations) on phase 19's ``--refine``
+     predictions repeated 7 times through the runner's edge and
+     information pipeline (114 poses: two full pose-graph windows, a
+     third of 18, two stitchings), within 1e-4 (translations) and 1e-5
+     (quaternions), two card solves bit-equal, and bit-equal with TF32
+     turned on globally (the solver pins f32 itself);
+     ``refine_window_ba`` on window 0's network voxel
+     points with ``cov_sqrt_info`` weights within 1e-5; ``close_loops``
+     on tests/test_loop_closure.py's closed circuit (25 poses, clouds of
+     4096 points): at least one loop, the endpoint error below half the
+     drifted chain's, 8 B3 launches per ICP run, the CPU's loops and
+     poses; B3 bit-equal to its plain version (distances and indices)
+     on the inputs of every ICP iteration of that run and on the loop's
+     clouds with every 7th point masked; each solve timed on the host
+     and profiled on the device; B3 timed at ICP's call (1 x 4096 x
+     4096) against its plain version
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -146,7 +177,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-18 beside them) and the result (JSON); the card's
+of phases 14-20 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -177,6 +208,36 @@ PILLAR_DIR = os.path.join(REPO, "build", "smoke_pillar")
 VERB_DIR = os.path.join(REPO, "build", "smoke_train_verb")
 PILLAR_STEPS, PILLAR_LEG = 6, 4
 VERB_STEPS = 2
+# phase 19: the refined evaluate verb, (flag, windows, extra arguments).
+# Each synthetic window is a scene of its own, so no keyframe pair
+# revisits a place: the best candidates score 0.70-0.73, none reaches
+# the default 0.8, and a threshold of 0.7 makes ICP (and B3) measure
+# them on the verb's path
+REFINE_RUNS = (("--refine", 16, ()), ("--refine_ba", 8, ()),
+               ("--refine_loops", 16, ("--loop_min_separation", "10",
+                                       "--loop_score_threshold", "0.7")))
+# sparse convs a frame with the covariance decoder (the BA eval step)
+ALL_CONVS = 20
+REFINE_FRAMES = 3          # frames of a refined eval window
+ICP_ITERS = 8              # close_loops' icp_iters: B3 launches a candidate
+# the JAX package's run_eval_refined result keys (rslo_tpu/eval/runner.py)
+REFINED_KEYS = {"_meta": ["windows", "elapsed_s", "refined"],
+                "seq_00": ["refined", "chained"]}
+LOOP_KEYS = ["loop_closed", "n_loops", "loop_keyframes"]
+# phase 20: the synthetic split gives the verb at most 32 windows, so
+# the pose graph is held on phase 19's --refine predictions repeated
+# this many times: 16 x 7 windows, 114 poses, two full 64-pose windows
+# of the fusion and a third of 18 (KITTI's val sequences run ~1100
+# frames, ~23 such windows)
+FUSE_TILES = 7
+# phase 20: card against CPU, tests/test_torch_pgo.py's and
+# tests/test_torch_ba.py's tolerances: pose graph translations 1e-4 and
+# quaternions (up to sign) 1e-5; BA poses 1e-5
+PGO_T_TOL, PGO_Q_TOL, BA_TOL = 1e-4, 1e-5, 1e-5
+# the closed circuit of tests/test_loop_closure.py::
+# test_close_loops_corrects_drift, with clouds of loop_points
+LOOP_WORLD = dict(seed=3, n_points=60000, extent=45.0)
+LOOP_POSES, LOOP_CLOUD = 25, 4096
 KERNELS = ("gather_matmul", "row_gather", "nn_search", "band_conv")
 N_SCANS = 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
@@ -1091,20 +1152,11 @@ def overflow_audit(label, geo, band_overflow_counts, share=None):
     return saturated
 
 
-def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
-                       reset_counts, counts, prepare_example, vcfg, dev,
-                       smi_line, np, torch, ckpt_step=None):
-    """Phase 14 on one engine (phase 17: the pillar middle, whose
-    ``kernel`` is None: it launches none): the CLI's evaluate verb, in
-    this process and with its default device, on ``model_dir``'s latest
-    checkpoint or ``--ckpt_step ckpt_step``; every eval step is recorded
-    (its launches, and window 0's odometry and batch).  Returns the
-    launches of the whole run."""
-    windows = EVAL_WINDOWS[engine]
-    extra = [] if ckpt_step is None else ["--ckpt_step", str(ckpt_step)]
-    cfg_path = os.path.join(model_dir, "eval_config.json")
-    with open(cfg_path, "w") as fh:
-        fh.write(cfg.to_json())
+@contextlib.contextmanager
+def recorded_eval_steps(Trainer, counts):
+    """``Trainer.eval_fn`` patched while the block runs: each eval step's
+    launches (the counts' change across it), its output and, for the
+    first step, its batch, appended to the list it yields."""
     steps = []
     eval_fn = Trainer.eval_fn
 
@@ -1120,13 +1172,31 @@ def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
             return out
         return run
     Trainer.eval_fn = recording_eval_fn
-    reset_counts()
-    t0 = time.perf_counter()
     try:
-        cli.main(["evaluate", "--config", cfg_path, "--model_dir", model_dir,
-                  "--synthetic", "--max_windows", str(windows)] + extra)
+        yield steps
     finally:
         Trainer.eval_fn = eval_fn
+
+
+def evaluate_and_check(engine, model_dir, kernel, cfg, cli, Trainer, counted,
+                       reset_counts, counts, prepare_example, vcfg, dev,
+                       smi_line, np, torch, ckpt_step=None):
+    """Phase 14 on one engine (phase 17: the pillar middle, whose
+    ``kernel`` is None: it launches none): the CLI's evaluate verb, in
+    this process and with its default device, on ``model_dir``'s latest
+    checkpoint or ``--ckpt_step ckpt_step``; every eval step is recorded
+    (its launches, and window 0's odometry and batch).  Returns the
+    launches of the whole run."""
+    windows = EVAL_WINDOWS[engine]
+    extra = [] if ckpt_step is None else ["--ckpt_step", str(ckpt_step)]
+    cfg_path = os.path.join(model_dir, "eval_config.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+    reset_counts()
+    t0 = time.perf_counter()
+    with recorded_eval_steps(Trainer, counts) as steps:
+        cli.main(["evaluate", "--config", cfg_path, "--model_dir", model_dir,
+                  "--synthetic", "--max_windows", str(windows)] + extra)
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     total = counts()
@@ -1465,6 +1535,349 @@ def pillar_and_verb_phases(pcfg, train_config, rb_ops, frames, dev,
             "pillar_train_launches": pillar_train_launches,
             "pillar_eval_launches": pillar_eval_launches,
             "train_verb_launches": verb_launches}
+
+
+class Timed:
+    """Stands in for ``module.name`` while a run goes: each call's host
+    ms (synchronized on both sides), its arguments and its result."""
+
+    def __init__(self, module, name, torch):
+        self.module, self.name, self.torch = module, name, torch
+        self.fn = getattr(module, name)
+        self.calls = []
+
+    def __call__(self, *args, **kw):
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kw)
+        self.torch.cuda.synchronize()
+        self.calls.append(((time.perf_counter() - t0) * 1e3, args, kw, out))
+        return out
+
+    def ms(self):
+        return [c[0] for c in self.calls]
+
+    def __enter__(self):
+        setattr(self.module, self.name, self)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def pose_diff(got, want, np):
+    """Max |translation| difference and max quaternion difference (up to
+    sign) of two (N, 7) trajectories."""
+    dq = np.minimum(np.abs(got[:, 3:] - want[:, 3:]).max(-1),
+                    np.abs(got[:, 3:] + want[:, 3:]).max(-1))
+    return float(np.abs(got[:, :3] - want[:, :3]).max()), float(dq.max())
+
+
+def local_cloud(world, pose, n_keep, np, quat_to_matrix_np):
+    """The n_keep world points nearest a sensor pose (in xy), in its
+    frame (tests/test_loop_closure.py::local_cloud)."""
+    loc = (world[:, :3] - pose[:3]) @ quat_to_matrix_np(pose[3:])
+    idx = np.argsort(np.linalg.norm(loc[:, :2], axis=1))[:n_keep]
+    return loc[idx].astype(np.float32)
+
+
+def loop_circuit(np, n_poses=LOOP_POSES, n_keep=LOOP_CLOUD, world=LOOP_WORLD):
+    """tests/test_loop_closure.py's closed circuit: a circle of radius 15
+    m whose last pose revisits the first, clouds cropped from one
+    synthetic world, odometry with a 0.006 rad yaw drift a step.
+    Returns (ground truth (N, 7), clouds, drifted odometry)."""
+    from rslo_tpu_torch.geometry.transforms import (
+        np_compose_pose, np_invert_pose, quat_to_matrix_np)
+    from rslo_tpu_torch.utils.synthetic import synth_cloud
+
+    def yaw_pose(yaw, t=(0.0, 0.0, 0.0)):
+        return np.array([t[0], t[1], t[2], np.cos(yaw / 2), 0, 0,
+                         np.sin(yaw / 2)], np.float32)
+
+    pts = synth_cloud(np.random.default_rng(world["seed"]),
+                      n_points=world["n_points"], extent=world["extent"])
+    gt = []
+    for k in range(n_poses):
+        ang = 2 * np.pi * k / (n_poses - 1)
+        gt.append(yaw_pose(ang + np.pi / 2, (15.0 * np.cos(ang) - 15.0,
+                                             15.0 * np.sin(ang), 0.0)))
+    gt = np.stack(gt)
+    clouds = [local_cloud(pts, p, n_keep, np, quat_to_matrix_np)
+              for p in gt]
+    odoms = np_compose_pose(np_invert_pose(gt[:-1]), gt[1:])
+    odoms = np_compose_pose(odoms, np.tile(yaw_pose(0.006),
+                                           (n_poses - 1, 1)))
+    return gt, clouds, odoms
+
+
+def pgo_windows(n_poses, kw):
+    """The pose-graph windows ``fuse_window_odometry`` covers for
+    ``n_poses`` poses (its ``window``/``overlap`` in ``kw``)."""
+    step = kw.get("window", 64) - kw.get("overlap", 16)
+    return len(range(0, n_poses - 1, step))
+
+
+def time_solve(label, fn, smi_line, torch):
+    """Host ms (median of 3 after a warm-up call, synchronized) and the
+    device ms and ops of one call (torch.profiler)."""
+    fn()
+    ms = median_ms(fn, 3, torch)
+    prof = profile_device([fn], torch)
+    if prof is None:
+        say(f"[time] {label}: {ms:.3f} ms (host clock, median of 3); the "
+            f"trace holds no device events; {smi_line}")
+        return
+    say(f"[time] {label}: {ms:.3f} ms (host clock, median of 3), "
+        f"{prof['device_ms']:.3f} ms of device work in {prof['ops']:.0f} "
+        f"device ops, the device idle "
+        f"{1 - prof['device_ms'] / ms:.1%}; {smi_line}")
+    for name, dms, n in prof["top"][:5]:
+        say(f"  {dms:8.3f} ms  {n:6.1f} ops  {name}")
+
+
+def refined_phases(cfg, model_dir, cli, Trainer, counted, reset_counts,
+                   counts, dev, smi_line, np, torch, runs=REFINE_RUNS,
+                   circuit=loop_circuit):
+    """Phases 19-20: the CLI's evaluate verb with ``--refine``,
+    ``--refine_ba`` and ``--refine_loops`` at ``cfg`` from
+    ``model_dir``'s latest checkpoint; then the pose graph, BA and loop
+    closing on the card against the CPU, the pose graph with TF32 on.
+    ``circuit(np)`` makes phase 20's loop (``loop_circuit``).  Returns
+    each path's launches by kernel."""
+    from rslo_tpu_torch.eval import runner
+    from rslo_tpu_torch.geometry.transforms import odom_to_abs_pose
+    from rslo_tpu_torch.ops.chamfer import nn_search, nn_search_plain
+    from rslo_tpu_torch.pgo import ba_bridge, loop_closure
+    from rslo_tpu_torch.pgo.ba_bridge import (refine_window_ba,
+                                              window_ba_problem)
+    from rslo_tpu_torch.pgo.loop_closure import close_loops
+    from rslo_tpu_torch.pgo.refine import (
+        calibrate_pair_info, duplicate_pair_variance, fuse_window_odometry,
+        window_pairs_to_edges)
+    # -- 19. the refined evaluate verb ---------------------------------------
+    cfg_path = os.path.join(model_dir, "refine_config.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(cfg.to_json())
+    launches, recorded = {}, {}
+    for flag, windows, extra in runs:
+        reset_counts()
+        t0 = time.perf_counter()
+        with recorded_eval_steps(Trainer, counts) as steps, \
+                Timed(runner, "fuse_window_odometry", torch) as fuse, \
+                Timed(runner, "window_pairs_to_edges", torch) as pairs, \
+                Timed(runner, "refine_window_ba", torch) as ba, \
+                Timed(ba_bridge, "solve_ba", torch) as solve, \
+                Timed(runner, "close_loops", torch) as loops, \
+                Timed(loop_closure, "icp_align", torch) as icp:
+            cli.main(["evaluate", "--config", cfg_path, "--model_dir",
+                      model_dir, "--synthetic", "--max_windows",
+                      str(windows), flag, *extra])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        total = counts()
+        with open(os.path.join(model_dir, "eval_results.json")) as fh:
+            res = json.load(fh)
+        want_keys = dict(REFINED_KEYS)
+        if flag == "--refine_loops":
+            want_keys["seq_00"] = want_keys["seq_00"] + LOOP_KEYS
+        keys = {k: list(v) for k, v in res.items()}
+        if keys != want_keys:
+            fail(f"evaluate {flag}: eval_results.json keys {keys} != "
+                 f"{want_keys}")
+        if res["_meta"]["windows"] != windows or len(steps) != windows:
+            fail(f"evaluate {flag}: {res['_meta']['windows']} windows in "
+                 f"the results, {len(steps)} eval steps, expected {windows}")
+        seq = res["seq_00"]
+        metrics = {f"{v}/{k}": seq[v][k] for v in want_keys["seq_00"][:3]
+                   if v in ("refined", "chained", "loop_closed")
+                   for k in ("t_rel_pct", "r_rel_deg_per_100m",
+                             "ate_rmse_m")}
+        if not all(math.isfinite(x) for x in metrics.values()):
+            fail(f"evaluate {flag}: non-finite metrics {metrics}")
+        convs = ALL_CONVS if flag == "--refine_ba" else ENCODER_CONVS
+        want = dict.fromkeys(counted, 0)
+        want["gather_matmul"] = REFINE_FRAMES * convs
+        bad = [i for i, (c, _, _) in enumerate(steps) if c != want]
+        if bad:
+            fail(f"evaluate {flag}: window {bad[0]} launched "
+                 f"{steps[bad[0]][0]}, expected {want}")
+        want_total = {k: n * windows for k, n in want.items()}
+        if flag == "--refine_loops":
+            want_total["nn_search"] = ICP_ITERS * len(icp.calls)
+            if not 1 <= len(icp.calls) == seq["n_loops"]:
+                fail(f"evaluate {flag}: {len(icp.calls)} ICP runs for "
+                     f"{seq['n_loops']} loop candidates (at least 1)")
+        if total != want_total:
+            fail(f"evaluate {flag}: the run launched {total}, expected "
+                 f"{want_total}")
+        launches[flag] = total
+        elapsed = res["_meta"]["elapsed_s"]
+        say(f"[evaluate {flag}] {windows} windows, {want['gather_matmul']} "
+            f"gather_matmul launches each"
+            + (f", {total['nn_search']} nn_search launches in "
+               f"{len(icp.calls)} ICP runs ({seq['n_loops']} candidates, "
+               f"{seq['loop_keyframes']} keyframes)"
+               if flag == "--refine_loops" else "")
+            + "; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+        say(f"[time] evaluate {flag}: {windows / elapsed:.3f} windows/s, "
+            f"{elapsed / windows * 1e3:.3f} ms/window (run_eval_refined's "
+            f"clock over the window loop, BA included); the whole CLI run "
+            f"{run_s:.2f} s; {smi_line}")
+        say(f"[time] evaluate {flag}: pose-graph fusion "
+            f"{', '.join(f'{m:.3f}' for m in fuse.ms())} ms a sequence ("
+            + ", ".join(f"{c[1][2]} poses, {pgo_windows(c[1][2], c[2])} "
+                        f"windows" for c in fuse.calls) + ")"
+            + (f"; BA {statistics.median(ba.ms()):.3f} ms a window "
+               f"(median of {len(ba.calls)}; the solve alone "
+               f"{statistics.median(solve.ms()):.3f})" if ba.calls else "")
+            + (f"; loop closing {', '.join(f'{m:.3f}' for m in loops.ms())}"
+               f" ms (ICP {statistics.median(icp.ms()):.3f} ms a candidate)"
+               if icp.calls else
+               f"; loop closing {', '.join(f'{m:.3f}' for m in loops.ms())}"
+               f" ms" if loops.calls else ""))
+        recorded[flag] = dict(pairs=pairs.calls, fuse=fuse.calls,
+                              ba=ba.calls)
+
+    # -- 20. refinement on the card against the CPU ---------------------------
+    # the runner's fusion inputs for the --refine predictions (its first
+    # window_pairs_to_edges call; the second takes the ground truth),
+    # repeated FUSE_TILES times
+    _, (starts, offsets, preds), _, _ = recorded["--refine"]["pairs"][0]
+    span = max(starts) + 1
+    starts = [s + r * span for r in range(FUSE_TILES) for s in starts]
+    preds = np.concatenate([preds] * FUSE_TILES)
+    edges, motions, weights = window_pairs_to_edges(starts, offsets, preds)
+    info = calibrate_pair_info(edges, motions, weights, dup_var=(
+        duplicate_pair_variance(starts, offsets, preds)))
+    args = (edges, motions, max(starts) + REFINE_FRAMES, weights)
+    kw = {k: v for k, v in recorded["--refine"]["fuse"][0][2].items()
+          if k != "device"}
+    kw["pair_info"] = info
+
+    def fuse(device):
+        return fuse_window_odometry(*args, device=device, **kw)
+
+    card, again, cpu = fuse(dev), fuse(dev), fuse("cpu")
+    dt, dq = pose_diff(card, cpu, np)
+    say(f"[pgo] fuse_window_odometry (window {kw['window']}, overlap "
+        f"{kw['overlap']}, iters {kw['iters']}) on phase 19's --refine "
+        f"predictions repeated {FUSE_TILES} times: {len(args[0])} edges, "
+        f"{args[2]} poses in "
+        f"{pgo_windows(args[2], kw)} windows; card vs CPU max "
+        f"|dt| {dt:.3e} m (<= {PGO_T_TOL:g}), |dq| {dq:.3e} (<= "
+        f"{PGO_Q_TOL:g}); a second card solve bit-equal: "
+        f"{np.array_equal(card, again)}")
+    if dt > PGO_T_TOL or dq > PGO_Q_TOL or not np.isfinite(card).all():
+        fail("pose graph: the card's refined poses differ from the CPU's")
+    if not np.array_equal(card, again):
+        fail("pose graph: two card solves differ")
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = fuse(dev)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    say(f"[pgo] TF32 on globally: refined poses bit-equal to TF32 off: "
+        f"{np.array_equal(tf32, card)}")
+    if not np.array_equal(tf32, card):
+        fail("pose graph: TF32 on globally changed the refined poses")
+    time_solve(f"pose-graph fusion, {args[2]} poses in "
+               f"{pgo_windows(args[2], kw)} windows, on the card",
+               lambda: fuse(dev), smi_line, torch)
+
+    _, args, kw, _ = recorded["--refine_ba"]["ba"][0]
+    kw = {k: v for k, v in kw.items() if k != "device"}
+    odoms = np.zeros((REFINE_FRAMES, 7), np.float32)
+    odoms[:, 3] = 1.0
+    odoms[1:] = args[1]
+    problem = window_ba_problem(args[0], odom_to_abs_pose(odoms),
+                                kw.get("point_weights"), device="cpu")
+    card = refine_window_ba(*args, device=dev, **kw)
+    cpu = refine_window_ba(*args, device="cpu", **kw)
+    dt, dq = pose_diff(card, cpu, np)
+    say(f"[ba] refine_window_ba on window 0's network voxel points with "
+        f"cov_sqrt_info weights: {[len(p) for p in args[0]]} points a "
+        f"frame, {len(problem.landmarks)} landmarks, "
+        f"{len(problem.obs_pose)} observations; card vs "
+        f"CPU max |dt| {dt:.3e} m, |dq| {dq:.3e} (<= {BA_TOL:g})")
+    if dt > BA_TOL or dq > BA_TOL or not np.isfinite(card).all():
+        fail("BA: the card's window poses differ from the CPU's")
+    time_solve(f"BA, one window ({len(problem.landmarks)} landmarks), on "
+               f"the card", lambda: refine_window_ba(*args, device=dev,
+                                                     **kw), smi_line, torch)
+
+    gt, clouds, odoms = circuit(np)
+    kw = dict(min_separation=15, score_threshold=0.85, loop_info=50.0)
+    with Timed(loop_closure, "icp_align", torch) as icp, \
+            Timed(loop_closure, "nn_search", torch) as searches:
+        reset_counts()
+        poses, cands = close_loops(odoms, clouds, device=dev, **kw)
+        torch.cuda.synchronize()
+        circuit_launches = counts()
+    want = dict.fromkeys(counted, 0)
+    want["nn_search"] = ICP_ITERS * len(icp.calls)
+    chain = odom_to_abs_pose(np.concatenate(
+        [[[0, 0, 0, 1, 0, 0, 0]], odoms]).astype(np.float32))
+    e_chain = float(np.linalg.norm(chain[-1, :3] - gt[-1, :3]))
+    e_opt = float(np.linalg.norm(poses[-1, :3] - gt[-1, :3]))
+    cpu, cpu_cands = close_loops(odoms, clouds, device="cpu", **kw)
+    dt, dq = pose_diff(poses, cpu, np)
+    say(f"[loops] close_loops on a {len(gt)}-pose circuit, clouds of "
+        f"{len(clouds[0])} points: loops {cands.pairs.tolist()} (scores "
+        f"{np.round(cands.scores, 4).tolist()}), {len(icp.calls)} ICP runs, "
+        f"launches {circuit_launches}; endpoint error {e_opt:.4f} m against "
+        f"the drifted chain's {e_chain:.4f}; card vs CPU max |dt| "
+        f"{dt:.3e} m, |dq| {dq:.3e}, the same loops: "
+        f"{np.array_equal(cands.pairs, cpu_cands.pairs)}")
+    if len(cands.pairs) < 1 or len(icp.calls) != len(cands.pairs):
+        fail(f"loop closing: {len(cands.pairs)} loops, {len(icp.calls)} ICP "
+             f"runs")
+    if circuit_launches != want:
+        fail(f"loop closing: launches {circuit_launches}, expected {want}")
+    if not e_opt < 0.5 * e_chain:
+        fail(f"loop closing: endpoint error {e_opt} not below half the "
+             f"chain's {e_chain}")
+    if (dt > PGO_T_TOL or dq > PGO_Q_TOL or
+            not np.array_equal(cands.pairs, cpu_cands.pairs)):
+        fail("loop closing: the card's poses differ from the CPU's")
+    # B3 against its plain version at ICP's calls: the inputs of each
+    # ICP iteration of the run above, then the loop's two clouds, all
+    # points valid and with every 7th masked on both sides
+    for _, call_args, call_kw, _ in searches.calls:
+        check_nn_search(torch, nn_search, nn_search_plain, *call_args,
+                        **call_kw)
+    src = torch.as_tensor(clouds[0], device=dev)[None]
+    tgt = torch.as_tensor(clouds[-1], device=dev)[None]
+    msk = torch.ones(src.shape[:2], dtype=torch.bool, device=dev)
+    sparse = msk.clone()
+    sparse[:, ::7] = False
+    check_nn_search(torch, nn_search, nn_search_plain, src, msk, tgt, msk)
+    check_nn_search(torch, nn_search, nn_search_plain, src, sparse, tgt,
+                    sparse)
+    say(f"[loops] nn_search bit-equal to nn_search_plain (distances and "
+        f"indices) on the {len(searches.calls)} ICP calls' inputs and at "
+        f"1 x {src.shape[1]} x {tgt.shape[1]} with all points valid and "
+        f"with every 7th masked")
+    time_solve(f"loop closing, {len(gt)} poses, on the card",
+               lambda: close_loops(odoms, clouds, device=dev, **kw),
+               smi_line, torch)
+    us = graph_us([("kernel", lambda: nn_search(src, msk, tgt, msk)),
+                   ("plain", lambda: nn_search_plain(src, msk, tgt, msk))],
+                  20, torch)
+    n_pairs = src.shape[1] * tgt.shape[1]
+    bound = bound_ms(nbytes(src, msk, tgt, msk) + src.shape[1] * 8,
+                     9.0 * n_pairs, "f32")
+    say(f"[time] nn_search at ICP's call, 1 x {src.shape[1]} x "
+        f"{tgt.shape[1]}: kernel {us['kernel']:.2f} us/call, plain "
+        f"{us['plain']:.2f} us/call (device time, in turns); bound "
+        f"{bound[0] * 1e3:.2f} us ({bound[1]}); {smi_line}")
+    return {"refine_launches": launches["--refine"],
+            "refine_ba_launches": launches["--refine_ba"],
+            "refine_loops_launches": launches["--refine_loops"],
+            "loop_circuit_launches": circuit_launches}
 
 
 def main():
@@ -2643,7 +3056,6 @@ def main():
             eval_launches[k] += n
     trainer.logger.close()
     btrainer.logger.close()
-    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
     shutil.rmtree(BAND_TRAIN_DIR, ignore_errors=True)
 
     # -- 15-18. the pillar configuration and the train verb ----------------
@@ -2654,6 +3066,12 @@ def main():
             *a, cli, Trainer, counted, reset_counts, counts,
             prepare_example, kw.pop("vcfg"), dev, smi_line, np, torch, **kw),
         np, torch)
+
+    # -- 19-20. the refined evaluation; refinement, card against CPU -------
+    more.update(refined_phases(cfg, TRAIN_DIR, cli, Trainer, counted,
+                               reset_counts, counts, dev, smi_line, np,
+                               torch))
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
     say(smi_line)
     rows = []
@@ -2668,10 +3086,12 @@ def main():
                      "library_ms": row["library_ms"],
                      # launches in phase 14's evaluations, both engines
                      "eval_launches": eval_launches[name],
-                     # launches on the paths of phases 15-18: pillar
+                     # launches on the paths of phases 15-20: pillar
                      # streaming, the pillar train verb (both legs, the
                      # eval hook included), evaluate --ckpt_step best on
-                     # it, and the train verb on kitti_train_ours.json
+                     # it, the train verb on kitti_train_ours.json, the
+                     # refined evaluate verb with each flag, and loop
+                     # closing on phase 20's circuit
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -9,7 +9,9 @@ checkpoint (or a fresh or warm-started state), with a periodic eval
 that keeps the best checkpoint.  ``evaluate`` evaluates the model dir's
 latest checkpoint (``--ckpt_step N`` or ``best`` for another; the
 seeded initial weights where there is none) on the val split, writes
-``eval_results.json`` into the model dir and prints it.
+``eval_results.json`` into the model dir and prints it; ``--refine``,
+``--refine_ba`` and ``--refine_loops`` evaluate 3-frame windows fused
+by the pose graph (with bundle adjustment, with loop closing).
 ``--synthetic`` swaps the KITTI store for the generated scene.  Both
 run on the CUDA card unless ``--device cpu`` is given.
 """
@@ -236,20 +238,22 @@ def cmd_train(args):
 
 
 def cmd_evaluate(args) -> dict:
-    if args.refine or args.refine_ba or args.refine_loops:
-        raise NotImplementedError(
-            "--refine, --refine_ba and --refine_loops (run_eval_refined: "
-            "pose-graph fusion, bundle adjustment, loop closing) are not "
-            "ported yet: ROADMAP A12")
     from .data.dataset import DATASETS
-    from .eval.runner import run_eval
+    from .eval.runner import run_eval, run_eval_refined
     from .train.loop import Trainer
 
     cfg = _load_cfg(args.config)
+    refine = args.refine or args.refine_ba or args.refine_loops
+    # the refined evaluation fuses the redundant pairs of 3-frame windows
+    seq_len = 3 if refine else 2
     if args.synthetic:
-        dataset = _synthetic_dataset(cfg, "val", n_windows=32)
+        cfg2 = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                    seq_length=seq_len))
+        dataset = _synthetic_dataset(
+            cfg2, "train" if seq_len == 3 else "val", n_windows=32)
     else:
-        dataset = DATASETS[cfg.data.dataset](cfg.data, "val", seq_length=2)
+        dataset = DATASETS[cfg.data.dataset](cfg.data, "val",
+                                             seq_length=seq_len)
     ckpt_step, best = args.ckpt_step, None
     if ckpt_step == "best":
         best_p = Path(args.model_dir) / "best_ckpt.json"
@@ -270,8 +274,20 @@ def cmd_evaluate(args) -> dict:
         trainer.init_state(ckpt_step=ckpt_step)
         plot_dir = _plot_dir(trainer.logger,
                              str(Path(args.model_dir) / "plots"))
-        results = run_eval(trainer.eval_fn(), dataset, cfg, trainer.logger,
-                           max_windows=args.max_windows, plot_dir=plot_dir)
+        if refine:
+            results = run_eval_refined(
+                trainer.eval_fn(), dataset, cfg, trainer.logger,
+                max_windows=args.max_windows, use_ba=args.refine_ba,
+                use_loops=args.refine_loops,
+                loop_min_separation=args.loop_min_separation,
+                loop_score_threshold=args.loop_score_threshold,
+                eval_step_cov=(trainer.eval_fn(with_cov=True)
+                               if args.refine_ba else None),
+                plot_dir=plot_dir)
+        else:
+            results = run_eval(trainer.eval_fn(), dataset, cfg,
+                               trainer.logger, max_windows=args.max_windows,
+                               plot_dir=plot_dir)
     finally:
         trainer.logger.close()
     print(json.dumps(results, indent=2, default=str))
@@ -315,9 +331,20 @@ def main(argv=None):
                         "best_ckpt.json; default: latest)")
     e.add_argument("--device", default="cuda",
                    help="torch device to run on (default: cuda)")
-    for flag in ("--refine", "--refine_ba", "--refine_loops"):
-        e.add_argument(flag, action="store_true",
-                       help="not ported yet (ROADMAP A12): raises")
+    e.add_argument("--refine", action="store_true",
+                   help="fuse the pair motions of 3-frame windows with "
+                        "pose-graph refinement")
+    e.add_argument("--refine_ba", action="store_true",
+                   help="refine with geometric bundle adjustment "
+                        "(landmark tracks from the network's voxel points, "
+                        "whitened by its covariances)")
+    e.add_argument("--refine_loops", action="store_true",
+                   help="close trajectory loops (polar-descriptor "
+                        "place recognition + ICP edges + pose graph)")
+    e.add_argument("--loop_min_separation", type=int, default=50,
+                   help="frames between a loop's two ends, at least")
+    e.add_argument("--loop_score_threshold", type=float, default=0.8,
+                   help="descriptor similarity a loop candidate needs")
     e.set_defaults(fn=cmd_evaluate)
 
     args = p.parse_args(argv)

@@ -1,8 +1,13 @@
 """Quaternion algebra on torch tensors (counterpart of
 ``rslo_tpu/geometry/quaternion.py``).
 
-Quaternions are wxyz (scalar first); every function works on the
-trailing axis of ``(..., D)`` tensors.
+Quaternions are wxyz (scalar first); a pose is a 7-vector ``[t(3),
+q(4)]``, and ``compose_pose(p1, p2)`` applies ``p2`` first, then ``p1``.
+Every function works on the trailing axis of ``(..., D)`` tensors, and
+each keeps the JAX version's order of operations.  ``qexp`` (through
+``safe_norm``) and ``qlog`` (through ``atan2``) keep finite derivatives
+at exactly zero local coordinates, where the pose-graph and BA solvers
+differentiate them.
 """
 from __future__ import annotations
 
@@ -28,6 +33,36 @@ def qinv(q: torch.Tensor) -> torch.Tensor:
     return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
 
 
+def qmult(q1: torch.Tensor, q2: torch.Tensor,
+          normalize: bool = True) -> torch.Tensor:
+    """Hamilton product ``q1 * q2`` (wxyz), re-normalized unless
+    ``normalize`` is false."""
+    w1, v1 = q1[..., :1], q1[..., 1:]
+    w2, v2 = q2[..., :1], q2[..., 1:]
+    w = w1 * w2 - torch.sum(v1 * v2, dim=-1, keepdim=True)
+    v = w2 * v1 + w1 * v2 + torch.linalg.cross(*torch.broadcast_tensors(
+        v1, v2))
+    q = torch.cat([w.expand(v.shape[:-1] + (1,)), v], dim=-1)
+    return qnormalize(q) if normalize else q
+
+
+def qexp(v: torch.Tensor) -> torch.Tensor:
+    """Exponential map from R^3 (log-quaternion) to a unit quaternion
+    (wxyz); safe_norm keeps its Jacobian finite at v == 0."""
+    n = safe_norm(v, eps=1e-8)
+    return torch.cat([torch.cos(n), v * (torch.sin(n) / n)], dim=-1)
+
+
+def qlog(q: torch.Tensor) -> torch.Tensor:
+    """Log map from a unit quaternion (wxyz) to R^3: the atan2 form,
+    whose derivative stays finite as the angle goes to 0."""
+    v = q[..., 1:]
+    w = q[..., :1]
+    s = safe_norm(v, eps=1e-8)
+    ang = torch.atan2(s, w)
+    return v * (ang / s)
+
+
 def rotate_vec_by_q(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Rotate vector(s) ``t`` by unit quaternion(s) ``q``:
     ``t' = t + 2 q_w (q_v x t) + 2 q_v x (q_v x t)``."""
@@ -36,6 +71,50 @@ def rotate_vec_by_q(t: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     b = torch.linalg.cross(qv, t)
     c = 2.0 * torch.linalg.cross(qv, b)
     return t + 2.0 * qw * b + c
+
+
+def compose_pose(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Compose 7-dim poses: apply ``p2`` first, then ``p1``."""
+    t1, q1 = p1[..., :3], p1[..., 3:]
+    t2, q2 = p2[..., :3], p2[..., 3:]
+    q = qmult(q1, q2)
+    t = t1 + rotate_vec_by_q(t2, q1)
+    return torch.cat([t, q], dim=-1)
+
+
+def invert_pose(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of a 7-dim pose."""
+    t, q = p[..., :3], p[..., 3:]
+    qi = qinv(q)
+    ti = -rotate_vec_by_q(t, qi)
+    return torch.cat([ti, qi], dim=-1)
+
+
+def calc_vo(p0: torch.Tensor, p1: torch.Tensor) -> torch.Tensor:
+    """Relative pose of ``p1`` expressed in the ``p0`` frame."""
+    return compose_pose(invert_pose(p0), p1)
+
+
+def transform_points(pose: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply pose ``[t, q]`` ((7,) or (..., 7)) to points (..., N, 3)."""
+    t, q = pose[..., None, :3], pose[..., None, 3:]
+    return rotate_vec_by_q(pts, q.expand(pts.shape[:-1] + (4,))) + t
+
+
+def slerp(q0: torch.Tensor, q1: torch.Tensor, alpha) -> torch.Tensor:
+    """Spherical linear interpolation between unit quaternions (wxyz);
+    a linear blend where they are nearly parallel."""
+    dot = torch.sum(q0 * q1, dim=-1, keepdim=True)
+    q1 = torch.where(dot < 0, -q1, q1)
+    dot = torch.abs(dot)
+    theta = torch.arccos(torch.clamp(dot, -1.0, 1.0))
+    sin_theta = torch.sin(theta)
+    use_lerp = sin_theta < 1e-6
+    safe_sin = torch.where(use_lerp, 1.0, sin_theta)
+    w0 = torch.where(use_lerp, 1.0 - alpha,
+                     torch.sin((1 - alpha) * theta) / safe_sin)
+    w1 = torch.where(use_lerp, alpha, torch.sin(alpha * theta) / safe_sin)
+    return qnormalize(w0 * q0 + w1 * q1)
 
 
 def hemisphere(q: torch.Tensor) -> torch.Tensor:

@@ -52,7 +52,8 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import _build
-from .dma_gather import f32_matmul, require_cuda, sparse_conv_grads
+from .dma_gather import require_cuda, sparse_conv_grads
+from .precision import f32_matmul
 from .sparse_conv import ConvIndex, round_operand
 
 _COMPUTE_DTYPES = (torch.bfloat16, torch.float32)

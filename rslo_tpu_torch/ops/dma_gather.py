@@ -23,7 +23,6 @@ other.  Each counts its kernel launches in ``<wrapper>.launches``.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import Optional
@@ -31,6 +30,7 @@ from typing import Optional
 import torch
 
 from . import _build
+from .precision import f32_matmul
 from .sparse_conv import (ConvIndex, round_operand, sparse_conv_apply,
                           sparse_conv_dgrad)
 
@@ -290,17 +290,6 @@ def _launch_row_gather(features: torch.Tensor, idx: torch.Tensor,
 
 
 row_gather.launches = 0
-
-
-@contextlib.contextmanager
-def f32_matmul():
-    """Full-f32 matrix products (no TF32), as JAX's HIGHEST."""
-    saved = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 class _SparseConv(torch.autograd.Function):

@@ -224,11 +224,50 @@ def test_cli_evaluate_checkpoints(runs, tmp_path):
     assert "restored checkpoint at step 2" in (mdir / "log.txt").read_text()
 
 
+# the keys of rslo_tpu/eval/runner.py::run_eval_refined's result
+# (tests/test_torch_eval_refined.py holds the whole structure to JAX's)
+REFINED_KEYS = {"_meta": ["windows", "elapsed_s", "refined"],
+                "seq_00": ["refined", "chained"]}
+LOOP_KEYS = ["loop_closed", "n_loops", "loop_keyframes"]
+
+
 @pytest.mark.parametrize("flag", ["--refine", "--refine_ba",
                                   "--refine_loops"])
-def test_cli_refine_is_not_ported(flag, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        _evaluate(_write_cfg(tmp_path, to_port(eval_cfg())), tmp_path, flag)
+def test_cli_refined_evaluate(flag, tmp_path, capsys, monkeypatch):
+    """The refined evaluation through the verb on 4 synthetic 3-frame
+    windows (the seeded initial weights, on the CPU): JAX's keys,
+    finite metrics, the plot and eval_results.json; the loop flags reach
+    close_loops."""
+    from rslo_tpu_torch.eval import runner
+    seen = []
+    close_loops = runner.close_loops
+
+    def recording(*args, **kw):
+        seen.append(kw)
+        return close_loops(*args, **kw)
+
+    monkeypatch.setattr(runner, "close_loops", recording)
+    res = _evaluate(_write_cfg(tmp_path, to_port(eval_cfg())),
+                    tmp_path / "m", flag, "--loop_min_separation", "3",
+                    "--loop_score_threshold", "0.95")
+    on_disk = json.loads((tmp_path / "m" / "eval_results.json").read_text())
+    want = dict(REFINED_KEYS)
+    if flag == "--refine_loops":
+        want["seq_00"] = want["seq_00"] + LOOP_KEYS
+    assert {k: list(v) for k, v in on_disk.items()} == want
+    assert list(res) == list(on_disk)
+    assert on_disk["_meta"]["windows"] == 4 and on_disk["_meta"]["refined"]
+    for name in want["seq_00"][:2] + want["seq_00"][2:3]:
+        assert np.isfinite(on_disk["seq_00"][name]["ate_rmse_m"]), name
+    if flag == "--refine_loops":
+        assert on_disk["seq_00"]["loop_keyframes"] == 6
+        assert on_disk["seq_00"]["n_loops"] >= 0
+        assert [(kw["min_separation"], kw["score_threshold"],
+                 kw["device"].type) for kw in seen] == [(3, 0.95, "cpu")]
+    else:
+        assert not seen
+    assert (tmp_path / "m" / "plots" / "traj_refined_00.png").exists()
+    assert "refined eval: 4 windows" in capsys.readouterr().out
 
 
 def test_cli_best_without_record_exits(tmp_path):

@@ -74,3 +74,106 @@ def test_synth_sequence_matches_jax():
     for a, b in zip(pf, jf):
         np.testing.assert_array_equal(a, b)
     assert pf[0].shape == (3000, 7) and pf[0].dtype == np.float32
+
+
+def _poses(q, t):
+    return np.concatenate([t, q / np.linalg.norm(q, axis=-1,
+                                                 keepdims=True)], -1)
+
+
+def test_pose_algebra_matches_jax(quats):
+    """qmult, compose/invert/calc_vo and transform_points are the same
+    f32 multiplies and adds in the same order: bit-equal.  qexp, qlog and
+    slerp go through sin/cos/atan2/acos, whose CPU implementations differ
+    by an ulp."""
+    q, t = quats
+    p1 = _poses(q, t)
+    p2 = p1[::-1].copy()
+    J = {k: jnp.asarray(v) for k, v in dict(q=q, p1=p1, p2=p2).items()}
+    for normalize in (True, False):
+        np.testing.assert_array_equal(
+            PG.qmult(tt(q), tt(q[::-1].copy()), normalize).numpy(),
+            np.asarray(G.qmult(J["q"], J["q"][::-1], normalize)))
+    np.testing.assert_array_equal(PG.compose_pose(tt(p1), tt(p2)).numpy(),
+                                  np.asarray(G.compose_pose(J["p1"],
+                                                            J["p2"])))
+    np.testing.assert_array_equal(PG.invert_pose(tt(p1)).numpy(),
+                                  np.asarray(G.invert_pose(J["p1"])))
+    np.testing.assert_array_equal(PG.calc_vo(tt(p1), tt(p2)).numpy(),
+                                  np.asarray(G.calc_vo(J["p1"], J["p2"])))
+    pts = np.random.default_rng(4).normal(size=(64, 9, 3)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        PG.transform_points(tt(p1), tt(pts)).numpy(),
+        np.asarray(G.transform_points(J["p1"], jnp.asarray(pts))))
+    np.testing.assert_array_equal(
+        PG.transform_points(tt(p1[0]), tt(pts[0])).numpy(),
+        np.asarray(G.transform_points(J["p1"][0], jnp.asarray(pts[0]))))
+    tol = dict(rtol=0, atol=1e-6)
+    v = t * 0.1
+    np.testing.assert_allclose(PG.qexp(tt(v)).numpy(),
+                               np.asarray(G.qexp(jnp.asarray(v))), **tol)
+    np.testing.assert_allclose(PG.qlog(tt(p1[:, 3:])).numpy(),
+                               np.asarray(G.qlog(J["p1"][:, 3:])), **tol)
+    for alpha in (0.0, 0.3, 1.0):
+        np.testing.assert_allclose(
+            PG.slerp(tt(p1[:, 3:]), tt(p2[:, 3:]), alpha).numpy(),
+            np.asarray(G.slerp(J["p1"][:, 3:], J["p2"][:, 3:], alpha)),
+            **tol)
+    # nearly parallel: the linear blend, bit-equal
+    np.testing.assert_array_equal(
+        PG.slerp(tt(p1[:, 3:]), tt(p1[:, 3:]), 0.3).numpy(),
+        np.asarray(G.slerp(J["p1"][:, 3:], J["p1"][:, 3:], 0.3)))
+
+
+@pytest.mark.parametrize("fn,at", [
+    ("qexp", [0.0, 0.0, 0.0]), ("qlog", [1.0, 0.0, 0.0, 0.0]),
+    ("qexp", [1e-9, -2e-9, 0.0]), ("qlog", [-1.0, 0.0, 0.0, 0.0])])
+def test_qexp_qlog_jacobians_finite_at_identity(fn, at):
+    """The solvers differentiate qexp at zero local coordinates and qlog
+    at identity residuals: torch.func.jacfwd there is finite and equals
+    jax.jacfwd (safe_norm in qexp, atan2 in qlog; an acos form or a
+    plain norm gives inf/NaN)."""
+    import jax
+    import torch
+    x = np.array(at, np.float32)
+    got = torch.func.jacfwd(getattr(PG, fn))(tt(x)).numpy()
+    want = np.asarray(jax.jacfwd(getattr(G, fn))(jnp.asarray(x)))
+    assert np.isfinite(got).all(), got
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+
+
+def test_bilinear_sample_matches_jax():
+    """Taps outside the image read 0 (clamped index, in-bounds mask)."""
+    from rslo_tpu.geometry import warp as jwarp
+    from rslo_tpu_torch.geometry import warp as pwarp
+    rng = np.random.default_rng(6)
+    img = rng.normal(size=(12, 16, 5)).astype(np.float32)
+    # pixel positions inside, on the border and outside on every side
+    xy = rng.uniform(-3, 19, size=(7, 40, 2)).astype(np.float32)
+    xy[0, :4] = [[0, 0], [15, 11], [15.5, 11.5], [-0.5, -0.5]]
+    got = pwarp.bilinear_sample(tt(img), tt(xy)).numpy()
+    want = np.asarray(jwarp.bilinear_sample(jnp.asarray(img),
+                                            jnp.asarray(xy)))
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    assert got.shape == (7, 40, 5)
+
+
+def test_inverse_warp_matches_jax():
+    from rslo_tpu.geometry import warp as jwarp
+    from rslo_tpu_torch.geometry import warp as pwarp
+    rng = np.random.default_rng(7)
+    H, W = 12, 16
+    img = rng.normal(size=(H, W, 6)).astype(np.float32)
+    tq = np.zeros((H, W, 7), np.float32)
+    tq[..., :3] = rng.normal(0, 2, size=(H, W, 3))
+    q = np.array([1, 0, 0, 0], np.float32) + rng.normal(
+        0, 0.05, size=(H, W, 4)).astype(np.float32)
+    tq[..., 3:] = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    pc = (-8.0, -6.0, -1.0, 8.0, 6.0, 1.0)
+    got = pwarp.inverse_warp(tt(img), tt(tq), pc)
+    want = jwarp.inverse_warp(jnp.asarray(img), jnp.asarray(tq), pc)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    assert 0 < float(want[1].mean()) < 1    # some cells warp out

@@ -31,8 +31,10 @@ def test_port_modules_import_without_jax():
     n, leaked = out.stdout.split(" ", 1)
     # every subpackage and module of the port is walked, the CLI and the
     # eval, data and logging modules among them, and the training data
-    # path, the pillar middle and the parameter surgery
-    assert int(n) >= 48, out.stdout
+    # path, the pillar middle and the parameter surgery, and the
+    # refinement package (pgo/) with geometry/warp.py and the shared
+    # matmul precision policy (ops/precision.py)
+    assert int(n) >= 56, out.stdout
     assert leaked.strip() == "[]", out.stdout
 
 
@@ -101,6 +103,36 @@ def test_training_modules_import_without_jax():
     statement of theirs names jax, flax or rslo_tpu."""
     env = dict(os.environ, PYTHONPATH=REPO)
     for name in _NEW_MODULES:
+        code = (f"import sys, {name}; print(sorted(m for m in sys.modules "
+                f"if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
+                f"'h5py', 'matplotlib')))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "[]", (name, out.stdout)
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}
+
+
+_REFINEMENT_MODULES = ("rslo_tpu_torch.geometry.warp",
+                       "rslo_tpu_torch.pgo.pose_graph",
+                       "rslo_tpu_torch.pgo.refine",
+                       "rslo_tpu_torch.pgo.ba",
+                       "rslo_tpu_torch.pgo.ba_bridge",
+                       "rslo_tpu_torch.pgo.loop_closure",
+                       "rslo_tpu_torch.ops.precision",
+                       "rslo_tpu_torch.eval.runner")
+
+
+def test_refinement_modules_import_without_jax():
+    """The refined evaluation's modules (warp, pose graph, windowed
+    refinement, BA and its bridge, loop closing, the runner), in one
+    fresh process each: no jax, flax, rslo_tpu, h5py or matplotlib
+    loaded, and no import statement of theirs names jax, flax or
+    rslo_tpu."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in _REFINEMENT_MODULES:
         code = (f"import sys, {name}; print(sorted(m for m in sys.modules "
                 f"if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
                 f"'h5py', 'matplotlib')))")
