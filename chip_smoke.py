@@ -13,10 +13,12 @@ defaults: block 256, windows (384, 1280, 768), min_channels 0, so every
 one of the 20 convs of a frame gets a band plan); then the pillar
 configuration streamed, trained through the CLI's ``train`` verb and
 evaluated at its best checkpoint, and the train verb on the shipped
-config warm-started from it; last, the refined evaluation (pose-graph
+config warm-started from it; the refined evaluation (pose-graph
 fusion, bundle adjustment, loop closing) through the evaluate verb, and
-each refinement solver on the card against the CPU.  Phases (each one
-exits non-zero when it fails):
+each refinement solver on the card against the CPU; last, the data
+build from a rendered world with the hier-cloud and cross-normal
+training it feeds and loop closing on a true revisit.  Phases (each
+one exits non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -177,7 +179,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-20 beside them) and the result (JSON); the card's
+of phases 14-21 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -186,6 +188,7 @@ import contextlib
 import ctypes
 import copy
 import dataclasses
+import importlib.util
 import json
 import math
 import os
@@ -238,6 +241,17 @@ PGO_T_TOL, PGO_Q_TOL, BA_TOL = 1e-4, 1e-5, 1e-5
 # test_close_loops_corrects_drift, with clouds of loop_points
 LOOP_WORLD = dict(seed=3, n_points=60000, extent=45.0)
 LOOP_POSES, LOOP_CLOUD = 25, 4096
+# phase 21: the raycast world's KITTI tree at the full 64 x 2048 beam
+# grid: a loop at 8 m/s (tests/test_cli_loops_e2e.py's 36 frames) whose
+# last ~7 frames revisit its start, and a curve to train on; the cross
+# normals' radius; the train steps of each new mode; the loop's
+# separation in frames
+WORLD_DIR = os.path.join(REPO, "build", "smoke_world")
+WORLD_SEQS = {0: (36, "loop", 8.0), 1: (6, "curve", 8.0)}
+WORLD_BEAMS = (64, 2048)
+CROSS_NORMAL_RADIUS = 1.5
+DATA_STEPS = 2
+LOOP_SEPARATION = 10
 KERNELS = ("gather_matmul", "row_gather", "nn_search", "band_conv")
 N_SCANS = 8
 # the H100 SXM's published peaks (NVIDIA data sheet, dense): HBM bytes/s,
@@ -724,7 +738,7 @@ class StepRecorder:
         self.loop.train_step = self.step
 
 
-def predicted_launches(ops, cfg, warmup):
+def predicted_launches(ops, cfg, warmup, grad_ops=None):
     """Kernel launches of one train step, from the ops of one frame's
     convs: a conv through a raw rulebook runs ``gather_matmul`` forward
     and ``row_gather`` for its d_W; a band plan runs ``band_matmul``
@@ -732,8 +746,10 @@ def predicted_launches(ops, cfg, warmup):
     (submanifold) plan, else ``row_gather``.  Every conv but the first
     (whose input needs no gradient) runs one d_features kernel:
     ``band_matmul_dgrad`` for a self-transpose plan, else
-    ``gather_matmul_dgrad``.  Each frame of the window repeats that;
-    each ICP round runs one ``nn_search`` for all pairs."""
+    ``gather_matmul_dgrad``.  Only the first ``grad_ops`` convs (all by
+    default) run a backward: the ones the loss reaches.  Each frame of
+    the window repeats that; each ICP round runs one ``nn_search`` for
+    all pairs."""
     want = dict.fromkeys(("gather_matmul", "gather_matmul_dgrad",
                           "row_gather", "band_matmul", "band_matmul_dgrad",
                           "band_gather"), 0)
@@ -741,6 +757,8 @@ def predicted_launches(ops, cfg, warmup):
     for i, op in enumerate(ops):
         st = op.plan is not None and op.plan.self_transpose
         want["gather_matmul" if op.plan is None else "band_matmul"] += L
+        if grad_ops is not None and i >= grad_ops:
+            continue
         want["band_gather" if st else "row_gather"] += L
         if i > 0:
             want["band_matmul_dgrad" if st else "gather_matmul_dgrad"] += L
@@ -1878,6 +1896,339 @@ def refined_phases(cfg, model_dir, cli, Trainer, counted, reset_counts,
             "refine_ba_launches": launches["--refine_ba"],
             "refine_loops_launches": launches["--refine_loops"],
             "loop_circuit_launches": circuit_launches}
+
+
+
+def memory_reader(store, np):
+    """A class with ``data/hdf5_store.py::SequenceReader``'s contract
+    (``n_frames``, ``frame(i, cross_normals)``) over ``store``: {seq:
+    (records, poses (n, 3, 4), Tr (3, 4))}, each record as
+    ``build_frame_record`` makes it, where the card's machine has no
+    h5py to write and read a store with."""
+    class MemoryReader:
+        def __init__(self, path, seq):
+            self.path, self.seq = path, seq
+            self.records, self.poses, self.Tr = store[seq]
+            self.n_frames = len(self.records)
+
+        def frame(self, i, cross_normals=False):
+            rec = self.records[i]
+            cols = [rec["lidar_points"], rec["lidar_normals"]]
+            if cross_normals and "lidar_cross_normals" in rec:
+                cols.insert(1, rec["lidar_cross_normals"])
+            out = {"points": np.concatenate(cols, axis=1),
+                   "pose": self.poses[i], "Tr": self.Tr}
+            out.update((k, v) for k, v in rec.items()
+                       if k.startswith("hier_"))
+            return out
+    return MemoryReader
+
+
+def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
+                      counts, dev, smi_line, np, torch, seqs=WORLD_SEQS,
+                      beams=WORLD_BEAMS, world_kwargs=None):
+    """Phase 21: the data build and the input variants it feeds.  The
+    raycast world's KITTI tree (``seqs`` at ``beams``), every frame's
+    store record by ``build_frame_record`` (the native normals), read
+    through ``memory_reader``; 2 steps of ``Trainer.fit`` at ``tcfg``
+    on the hier clouds and 2 with the cross-normal VFE; the point-stack
+    prepare against the mean path at ``cfg``; and ``run_eval_refined``
+    with loop closing on the rendered loop.  ``rb_ops`` are the train
+    frame's convs (``predicted_launches``).  Returns each path's
+    launches by kernel."""
+    from rslo_tpu_torch.data import dataset as dataset_mod
+    from rslo_tpu_torch.data import normals
+    from rslo_tpu_torch.data.dataset import DATASETS, KittiWindowDataset
+    from rslo_tpu_torch.data.hdf5_store import (SequenceReader,
+                                                build_frame_record)
+    from rslo_tpu_torch.data.kitti_io import (list_frames, read_calib,
+                                              read_poses, read_velodyne,
+                                              sequence_paths)
+    from rslo_tpu_torch.data.loader import DataLoader
+    from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
+    from rslo_tpu_torch.eval import runner
+    from rslo_tpu_torch.losses import consistency
+    from rslo_tpu_torch.models.vfe import VFES
+    from rslo_tpu_torch.ops.chamfer import nn_search, nn_search_plain
+    from rslo_tpu_torch.pgo import loop_closure
+    from rslo_tpu_torch.train import loop as train_loop
+    from rslo_tpu_torch.train.step import train_step
+    from rslo_tpu_torch.utils.world import write_kitti_tree
+    # -- 21a. render the world; build every frame's record -------------------
+    shutil.rmtree(WORLD_DIR, ignore_errors=True)
+    tree = os.path.join(WORLD_DIR, "kitti")
+    t0 = time.perf_counter()
+    write_kitti_tree(tree, seqs, world_seed=SEED, n_beams=beams[0],
+                     n_azimuth=beams[1], world_kwargs=world_kwargs)
+    n_frames = sum(n for n, _, _ in seqs.values())
+    render_ms = (time.perf_counter() - t0) * 1e3 / n_frames
+    t0 = time.perf_counter()
+    normals.build()
+    say(f"[data] native/prep.cpp built with g++ into "
+        f"{os.path.relpath(normals.library_path(), REPO)} in "
+        f"{time.perf_counter() - t0:.2f} s (or found built)")
+    sizes = tcfg.data.downsample_voxel_sizes[:1]
+    store, n_points, record_ms = {}, [], []
+    with Timed(normals, "estimate_normals", torch) as est:
+        for seq in seqs:
+            velo, seq_dir, pose_file = sequence_paths(tree, seq)
+            records = []
+            for fr in list_frames(velo):
+                pts = read_velodyne(fr)
+                t0 = time.perf_counter()
+                records.append(build_frame_record(
+                    pts, sizes, cross_normal_radius=CROSS_NORMAL_RADIUS))
+                record_ms.append((time.perf_counter() - t0) * 1e3)
+                n_points.append(len(pts))
+            store[seq] = (records, read_poses(pose_file),
+                          read_calib(seq_dir)["Tr"])
+    hier_key = f"hier_lidar_points_normals_{sizes[0]}"
+    n_hier = [len(r[hier_key]) for recs, _, _ in store.values()
+              for r in recs]
+    spec = ", ".join(f"seq {s:02d}: {n} {pat} at {v} m/s"
+                     for s, (n, pat, v) in seqs.items())
+    say(f"[data] rendered {n_frames} frames at {beams[0]} x {beams[1]} "
+        f"beams ({spec}): "
+        f"{statistics.mean(n_points):.0f} points a scan ({min(n_points)}-"
+        f"{max(n_points)}), {render_ms:.1f} ms a frame (host); records: "
+        f"normals at 0.6 m and {CROSS_NORMAL_RADIUS} m "
+        f"{statistics.mean(est.ms()):.1f} ms a call (host, {len(est.calls)} "
+        f"calls), hier clouds at {sizes[0]} m {statistics.mean(n_hier):.0f} "
+        f"points, build_frame_record {statistics.mean(record_ms):.1f} ms a "
+        f"frame (host); {smi_line}")
+    bad = [k for recs, _, _ in store.values() for r in recs
+           for k, v in r.items() if not np.isfinite(v).all()]
+    if bad or min(n_points) < 1000:
+        fail(f"data build: non-finite records {bad[:3]} or empty scans")
+    Reader = memory_reader(store, np)
+    if importlib.util.find_spec("h5py") is None:
+        say("[data] h5py is not installed: the create_hdf5 verb's file "
+            "write is not driven here (tests/test_torch_store.py holds it "
+            "byte-equal to the JAX package's on the CPU); the records "
+            "above are the verb's, by its own build_frame_record")
+    else:
+        h5 = os.path.join(WORLD_DIR, "all.h5")
+        cli.main(["create_hdf5", "--kitti_root", tree, "--out", h5,
+                  "--sequences", ",".join(str(s) for s in seqs),
+                  "--cross_normal_radius", str(CROSS_NORMAL_RADIUS)])
+        for seq in seqs:
+            got, want = SequenceReader(h5, seq), Reader(None, seq)
+            for i in range(want.n_frames):
+                for cross in (False, True):
+                    a, b = got.frame(i, cross), want.frame(i, cross)
+                    if sorted(a) != sorted(b) or not all(
+                            np.array_equal(a[k], b[k]) for k in a):
+                        fail(f"create_hdf5: seq {seq} frame {i} differs "
+                             f"from its in-memory record")
+        say("[data] the create_hdf5 verb's store equals the in-memory "
+            "records, frame by frame")
+
+    def windows(cls, data_cfg, *args, **kw):
+        saved = dataset_mod.SequenceReader
+        dataset_mod.SequenceReader = Reader
+        try:
+            return cls(data_cfg, *args, **kw)
+        finally:
+            dataset_mod.SequenceReader = saved
+
+    # -- 21b. training on the hier clouds and with the cross-normal VFE ------
+    curve = [s for s, (_, pat, _) in seqs.items() if pat == "curve"]
+    runs = {
+        "hier": tcfg.replace(
+            data=dataclasses.replace(tcfg.data, load_hier_points=True,
+                                     train_sequences=tuple(curve)),
+            loss=dataclasses.replace(tcfg.loss, use_hier_points=True,
+                                     warmup_steps=0)),
+        "crossnorm": tcfg.replace(
+            data=dataclasses.replace(tcfg.data,
+                                     dataset="kitti_crossnorm_hdf5",
+                                     train_sequences=tuple(curve)),
+            vfe=dataclasses.replace(tcfg.vfe,
+                                    name="SimpleVoxelXYZINormalNormalGT",
+                                    num_input_features=10),
+            loss=dataclasses.replace(tcfg.loss, warmup_steps=0))}
+    launches = {}
+    for mode, cfg_ in runs.items():
+        # the hier-cloud consistency takes no covariances: the loss
+        # leaves the covariance decoder's convs out of the backward
+        grad_ops = ENCODER_CONVS if mode == "hier" else None
+        run_dir = os.path.join(WORLD_DIR, mode)
+        trainer = Trainer(cfg_, run_dir, dev)
+        state = trainer.init_state()
+        before = {k: v.detach().clone()
+                  for k, v in state.model.state_dict().items()}
+        dataset = windows(DATASETS[cfg_.data.dataset], cfg_.data, "train")
+        loader = DataLoader(dataset, cfg_.data, 1, DATA_STEPS, train=True,
+                            seed=cfg_.train.seed)
+        reset_counts()
+        try:
+            with StepRecorder(train_loop, counts, torch) as rec, \
+                    Timed(consistency, "nn_search", torch) as searches:
+                state = trainer.fit(({k: v[0] for k, v in b.items()
+                                      if k != "meta"} for b in loader),
+                                    state, max_steps=DATA_STEPS)
+        finally:
+            loader.close()
+        torch.cuda.synchronize()
+        total = counts()
+        keys = sorted(rec.batch)
+        say(f"[train {mode}] {len(dataset)} windows of seq "
+            f"{curve[0]:02d}, batch {keys}, points "
+            f"{tuple(rec.batch['points'].shape)}")
+        if mode == "hier" and "hier_points" not in rec.batch:
+            fail("hier training: the batch carries no hier clouds")
+        if state.step != DATA_STEPS or len(rec.records) != DATA_STEPS:
+            fail(f"{mode} training: ended at {state.step}, "
+                 f"{len(rec.records)} steps recorded")
+        for k, (warm, got, ms) in enumerate(rec.records):
+            want = predicted_launches(rb_ops, cfg_, warm, grad_ops)
+            kind = "warmup" if warm else "post-warmup"
+            say(f"[train {mode}] step {k} ({kind}): {ms:.3f} ms (host "
+                f"clock, synchronized, the first step's set-up included), "
+                f"launches {got}")
+            if warm != (k <= cfg_.loss.warmup_steps) or got != want:
+                fail(f"{mode} training step {k}: launches {got}, predicted "
+                     f"{want}")
+        launches[mode] = {k: sum(c[k] for _, c, _ in rec.records)
+                          for k in counted}
+        if launches[mode] != total:
+            fail(f"{mode} training: launches outside the steps: {total}")
+        for step_i, row in trainer.history:
+            say(f"[train {mode}] step {step_i}: loss {row['loss']:.5f} "
+                f"consistency {row['consistency_loss']:.5f} grad_norm "
+                f"{row['grad_norm']:.4f}")
+            if not all(math.isfinite(v) for v in row.values()):
+                fail(f"{mode} training step {step_i}: non-finite metrics")
+        if len(trainer.history) != DATA_STEPS:
+            fail(f"{mode} training: {len(trainer.history)} logged steps")
+        after = state.model.state_dict()
+        same = {k for k, v in before.items() if torch.equal(v, after[k])}
+        mid = state.model.middle
+        decoder = {id(t) for m in (mid._convs[ENCODER_CONVS:] +
+                                   mid._norms[mid._n_enc_norms:])
+                   for t in list(m.parameters()) + list(m.buffers())}
+        dec_names = {k for k, t in state.model.state_dict(
+            keep_vars=True).items() if id(t) in decoder}
+        say(f"[train {mode}] {len(after) - len(same)} of {len(after)} "
+            f"tensors changed; unchanged: {len(same)}, all in the "
+            f"covariance decoder: {same <= dec_names}")
+        if same and (grad_ops is None or not same <= dec_names):
+            fail(f"{mode} training left tensors unchanged: "
+                 f"{sorted(same)[:5]}")
+        # B3 on the inputs of the run's first association
+        check_nn_search(torch, nn_search, nn_search_plain,
+                        *searches.calls[0][1], **searches.calls[0][2])
+        src = searches.calls[0][1][0]
+        say(f"[train {mode}] nn_search bit-equal to nn_search_plain "
+            f"(distances and indices) on the first association's inputs, "
+            f"{tuple(src.shape[:2])} x {searches.calls[0][1][2].shape[1]}")
+        batch = rec.batch
+        torch.cuda.synchronize()
+        live_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+        torch.cuda.reset_peak_memory_stats(dev)
+        step_ms = {}
+        for warm in (True, False):
+            train_step(state, batch, cfg_, trainer.optimizer, warmup=warm)
+            step_ms[warm] = median_ms(lambda: train_step(
+                state, batch, cfg_, trainer.optimizer, warmup=warm), 3, torch)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        say(f"[time] train step, {mode}, full width, 3 frames: warmup "
+            f"{step_ms[True]:.3f} ms, post-warmup {step_ms[False]:.3f} ms "
+            f"(median of 3 after one warm-up step each); peak device memory "
+            f"{peak:.1f} MiB, {peak - live_mib:.1f} MiB above the "
+            f"{live_mib:.1f} MiB live before the steps; {smi_line}")
+        trainer.logger.close()
+        del trainer, state, batch, rec, searches
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # -- 21c. the point stacks against the mean path, at the eval config ----
+    loop = [s for s, (_, pat, _) in seqs.items() if pat != "curve"][0]
+    vcfg = voxelizer_config(cfg)
+    scan = torch.as_tensor(Reader(None, loop).frame(0)["points"],
+                           device=dev)[None]
+    smask = torch.ones(scan.shape[:2], dtype=torch.bool, device=dev)
+    vfe = VFES["SimpleVoxelXYZINormal"]
+
+    def stack_path():
+        ex = prepare_example(scan, smask, vcfg)
+        return ex, vfe(ex["voxels"][0], ex["num_points"][0],
+                       cfg.vfe.num_input_features)
+
+    def mean_path():
+        return prepare_example(scan, smask, vcfg, mean_mode=True)
+
+    with torch.no_grad():
+        ex, feats = stack_path()
+        mean = mean_path()
+        same = [torch.equal(feats, mean["voxel_features"][0])] + [
+            torch.equal(ex[k], mean[k]) for k in ("coords", "num_points",
+                                                  "voxel_mask")]
+        say(f"[prepare] one rendered scan at the eval config: "
+            f"{int(mean['voxel_mask'].sum())} voxels; the point stacks "
+            f"{tuple(ex['voxels'].shape)} with SimpleVoxelXYZINormal "
+            f"bit-equal to the mean path: features {same[0]}, coords, "
+            f"counts and masks {all(same[1:])}")
+        if not all(same):
+            fail("the point-stack path with the mean VFE != the mean path")
+        ms = {name: event_us(fn, 10, torch) / 1e3
+              for name, fn in (("stack", stack_path), ("mean", mean_path))}
+        profs = {name: profile_device([fn], torch)
+                 for name, fn in (("stack", stack_path), ("mean", mean_path))}
+    say(f"[time] prepare a frame at the eval config: the point stacks + "
+        f"VFE {ms['stack']:.3f} ms, the mean path {ms['mean']:.3f} ms "
+        f"(CUDA events over 10 back-to-back calls)" + "".join(
+            f"; {name}: {p['device_ms']:.3f} ms of device work in "
+            f"{p['ops']:.0f} device ops" for name, p in profs.items()
+            if p is not None) + f"; {smi_line}")
+
+    # -- 21d. loop closing on the rendered revisit --------------------------
+    ecfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                                val_sequences=(loop,)))
+    dataset = windows(KittiWindowDataset, ecfg.data, "val",
+                      seq_length=REFINE_FRAMES)
+    tr = Trainer(ecfg, os.path.join(WORLD_DIR, "loops"), dev)
+    tr.init_state()
+    reset_counts()
+    t0 = time.perf_counter()
+    with Timed(runner, "close_loops", torch) as loops, \
+            Timed(loop_closure, "icp_align", torch) as icp:
+        res = runner.run_eval_refined(
+            tr.eval_fn(), dataset, ecfg, tr.logger, use_loops=True,
+            loop_min_separation=LOOP_SEPARATION)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    total = counts()
+    tr.logger.close()
+    seq = res[f"seq_{loop:02d}"]
+    n_win = res["_meta"]["windows"]
+    metrics = {f"{v}/t_rel_pct": seq[v]["t_rel_pct"]
+               for v in ("chained", "refined", "loop_closed")}
+    want = dict.fromkeys(counted, 0)
+    want["gather_matmul"] = n_win * REFINE_FRAMES * ENCODER_CONVS
+    want["nn_search"] = ICP_ITERS * len(icp.calls)
+    say(f"[loops] run_eval_refined on the rendered loop (seq {loop:02d}, "
+        f"{n_win} windows, {seq['loop_keyframes']} keyframes), "
+        f"min separation {LOOP_SEPARATION}, the default score threshold "
+        f"0.8: {seq['n_loops']} loops, {len(icp.calls)} ICP runs, launches "
+        f"{total}; " + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    if not 1 <= len(icp.calls) == seq["n_loops"]:
+        fail(f"loop closing on the rendered loop: {seq['n_loops']} loops, "
+             f"{len(icp.calls)} ICP runs (at least 1)")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"loop closing on the rendered loop: non-finite {metrics}")
+    if total != want:
+        fail(f"loop closing on the rendered loop: launches {total}, "
+             f"expected {want}")
+    say(f"[time] refined eval with loop closing on the rendered loop: "
+        f"{n_win / res['_meta']['elapsed_s']:.3f} windows/s "
+        f"(run_eval_refined's clock over the window loop), loop closing "
+        f"{', '.join(f'{m:.3f}' for m in loops.ms())} ms (ICP "
+        f"{statistics.median(icp.ms()):.3f} ms a candidate); the whole run "
+        f"{run_s:.2f} s; {smi_line}")
+    shutil.rmtree(WORLD_DIR, ignore_errors=True)
+    return {"hier_train_launches": launches["hier"],
+            "crossnorm_train_launches": launches["crossnorm"],
+            "world_loop_launches": total}
 
 
 def main():
@@ -3073,6 +3424,11 @@ def main():
                                torch))
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
+    # -- 21. the data build, its input variants and true loops -------------
+    more.update(data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted,
+                                  reset_counts, counts, dev, smi_line, np,
+                                  torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -3086,12 +3442,14 @@ def main():
                      "library_ms": row["library_ms"],
                      # launches in phase 14's evaluations, both engines
                      "eval_launches": eval_launches[name],
-                     # launches on the paths of phases 15-20: pillar
+                     # launches on the paths of phases 15-21: pillar
                      # streaming, the pillar train verb (both legs, the
                      # eval hook included), evaluate --ckpt_step best on
                      # it, the train verb on kitti_train_ours.json, the
-                     # refined evaluate verb with each flag, and loop
-                     # closing on phase 20's circuit
+                     # refined evaluate verb with each flag, loop
+                     # closing on phase 20's circuit, the hier-cloud and
+                     # cross-normal training and loop closing on the
+                     # rendered loop
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -1,9 +1,13 @@
 """Command-line entry points of the port (counterpart of
-``rslo_tpu/cli.py``; the ``train`` and ``evaluate`` verbs):
+``rslo_tpu/cli.py``; the ``create_hdf5``, ``train`` and ``evaluate``
+verbs):
 
+    python -m rslo_tpu_torch.cli create_hdf5 --kitti_root KITTI --out all.h5
     python -m rslo_tpu_torch.cli train --config cfg.json --model_dir runs/x
     python -m rslo_tpu_torch.cli evaluate --config cfg.json --model_dir runs/x
 
+``create_hdf5`` builds the HDF5 store from a raw KITTI odometry tree on
+the host (normals by the native ``native/prep.cpp`` build).
 ``train`` trains on the train split from the model dir's latest
 checkpoint (or a fresh or warm-started state), with a periodic eval
 that keeps the best checkpoint.  ``evaluate`` evaluates the model dir's
@@ -123,6 +127,14 @@ def _plot_dir(logger, path: str):
                         "skipped")
         return None
     return path
+
+
+def cmd_create_hdf5(args):
+    from .data.hdf5_store import create_hdf5
+    create_hdf5(args.kitti_root, args.out,
+                sequences=[int(s) for s in args.sequences.split(",")],
+                cross_normal_radius=args.cross_normal_radius,
+                max_frames=args.max_frames)
 
 
 def cmd_train(args):
@@ -299,6 +311,17 @@ def cmd_evaluate(args) -> dict:
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rslo_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("create_hdf5")
+    c.add_argument("--kitti_root", required=True)
+    c.add_argument("--out", required=True)
+    c.add_argument("--sequences", default=",".join(str(i)
+                                                   for i in range(11)))
+    c.add_argument("--max_frames", type=int, default=None)
+    c.add_argument("--cross_normal_radius", type=float, default=None,
+                   help="also store coarser-scale normals "
+                        "(lidar_cross_normals) for the crossnorm dataset")
+    c.set_defaults(fn=cmd_create_hdf5)
 
     t = sub.add_parser("train")
     t.add_argument("--config", default=None)

@@ -1,6 +1,5 @@
 """Device-side example preparation: padded raw point clouds -> voxelized
-model inputs (counterpart of ``rslo_tpu/data/prepare.py``; mean mode
-only)."""
+model inputs (counterpart of ``rslo_tpu/data/prepare.py``)."""
 from __future__ import annotations
 
 from typing import Dict
@@ -8,7 +7,7 @@ from typing import Dict
 import torch
 
 from ..config.schema import PipelineCfg
-from ..ops.voxelize import VoxelizerConfig, voxelize_sorted_mean
+from ..ops.voxelize import VoxelizerConfig, voxelize, voxelize_sorted_mean
 from .loader import quant_scale
 
 
@@ -39,16 +38,24 @@ def prepare_example(points: torch.Tensor, point_mask: torch.Tensor,
                     mean_mode: bool = False) -> Dict[str, torch.Tensor]:
     """points: (L, N, F) padded frames (float, or int16 transfer-quantized
     and dequantized here); point_mask: (L, N) bool.
-    Returns the voxelized example consumed by OdomNet (no batch dim)
-    with pre-encoded per-voxel mean features (``voxel_features``); the
-    normal columns 4:7 are re-normalized after averaging."""
-    if not mean_mode:
-        raise NotImplementedError(
-            "only mean-mode preparation (the SimpleVoxelXYZINormal VFE) "
-            "is ported; the (V, P, F) point-stack path is not")
+    Returns the voxelized example consumed by OdomNet (no batch dim):
+    the per-voxel point stacks (``voxels`` (L, V, P, F)) that the model's
+    VFE encodes, or with ``mean_mode`` the pre-encoded per-voxel mean
+    features (``voxel_features`` (L, V, F), the normal columns 4:7
+    re-normalized after averaging), which is what the mean VFE
+    ``SimpleVoxelXYZINormal`` makes of the stacks."""
     points = dequantize_points(points)
+    L = points.shape[0]
+    if not mean_mode:
+        vox = [voxelize(points[t], point_mask[t], vcfg) for t in range(L)]
+        return {
+            "voxels": torch.stack([v.voxels for v in vox]),
+            "num_points": torch.stack([v.num_points for v in vox]),
+            "coords": torch.stack([v.coords for v in vox]),
+            "voxel_mask": torch.stack([v.mask for v in vox]),
+        }
     vox = [voxelize_sorted_mean(points[t], point_mask[t], vcfg)
-           for t in range(points.shape[0])]
+           for t in range(L)]
     feats = []
     for v in vox:
         f = v.features

@@ -3,7 +3,10 @@
 
 Each incoming scan is voxelized and encoded ONCE, without the
 covariance decoder (14 sparse convs); its BEV features pair with the
-cached previous frame's features for the motion prediction.
+cached previous frame's features for the motion prediction.  The mean
+VFE takes the mean-mode preparation; any other VFE the point stacks,
+and the stream feeds the frame the ``SimpleVoxelXYZINormal`` encoding
+of them, as the JAX package's stream does.
 """
 from __future__ import annotations
 
@@ -15,13 +18,12 @@ import torch
 from ..config.schema import PipelineCfg
 from ..data.prepare import mean_vfe_ok, prepare_example, voxelizer_config
 from ..geometry import np_compose_pose
+from ..models.vfe import simple_voxel_xyzi_normal
 
 
 class StreamingOdometry:
     def __init__(self, net, cfg: PipelineCfg, device="cuda"):
-        if not mean_vfe_ok(cfg):
-            raise NotImplementedError(
-                f"VFE {cfg.vfe.name!r} is not ported; only the mean VFE")
+        self.mean_mode = mean_vfe_ok(cfg)
         self.device = torch.device(device)
         self.net = net.to(self.device).eval()
         self.cfg = cfg
@@ -32,9 +34,14 @@ class StreamingOdometry:
 
     def _features(self, pts: torch.Tensor, mask: torch.Tensor):
         ex = prepare_example(pts[None], mask[None], self.vcfg,
-                             mean_mode=True)
-        return self.net.frame_features(ex["voxel_features"][0],
-                                       ex["coords"][0],
+                             mean_mode=self.mean_mode)
+        if self.mean_mode:
+            f = ex["voxel_features"][0]
+        else:
+            f = simple_voxel_xyzi_normal(ex["voxels"][0],
+                                         ex["num_points"][0],
+                                         self.cfg.vfe.num_input_features)
+        return self.net.frame_features(f, ex["coords"][0],
                                        ex["voxel_mask"][0], with_cov=False)
 
     @torch.no_grad()

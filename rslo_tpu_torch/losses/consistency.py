@@ -3,7 +3,9 @@
 
 One-direction NN association, normal-cosine weighting, percentile
 outlier gating, Mahalanobis residual under
-``Σ = Σ_src + R Σ_assoc Rᵀ`` with a log-det regularizer, and an inner
+``Σ = Σ_src + R Σ_assoc Rᵀ`` with a log-det regularizer (or, without
+covariances, as on the offline hier clouds, the plain squared distance
+with no regularizer), and an inner
 weighted-Kabsch ICP loop whose accumulated ``(res_R, res_t)`` correction
 becomes the pseudo ego-motion target.  The JAX package vmaps one pair;
 here every function carries the pair axis P in front, so each NN search
@@ -101,7 +103,8 @@ def consistency_pair(src, src_mask, src_normal, cov_src, tgt, tgt_mask,
     """All pairs at once.  src (P, N, 3) reference-frame points; tgt
     (P, M, 3) counterpart points already warped by the predicted
     motion; cov_src (P, N, 7) params; cov_tgt_spanned (P, M, 3, 3) the
-    warped cloud's spanned covariances (rotated here by R_pred).
+    warped cloud's spanned covariances (rotated here by R_pred); both
+    None for the covariance-free data term.
     Returns (loss (P,), res_R (P, 3, 3), res_t (P, 3))."""
     src = src.float()
     tgt = tgt.float()
@@ -116,20 +119,24 @@ def consistency_pair(src, src_mask, src_normal, cov_src, tgt, tgt_mask,
 
     diff = src - assoc
     nroi = torch.sum(roi.float(), dim=-1) + 1e-12
-    sigma_src = span_cov(cov_src)
-    sigma_assoc = _rows(cov_tgt_spanned, idx)
-    Rb = R_det[:, None]
-    sigma = sigma_src + _mm(_mm(Rb, sigma_assoc), Rb.transpose(-1, -2))
-    # padded rows carry zero covariance: inverting them explodes the
-    # backward (1/det^2) into inf * masked-0 = NaN, so they become I
-    eye = torch.eye(3, dtype=sigma.dtype, device=sigma.device)
-    sigma = torch.where(assoc_valid[..., None, None], sigma, eye)
-    sigma_inv, det = inv3x3(sigma)
-    md = torch.sum(diff * _mv(sigma_inv, diff), dim=-1)
-    data_term = torch.sum(torch.where(roi, md, 0.0), dim=-1) / nroi
-    logdet = 0.5 * torch.log(torch.clamp(det, min=1e-20))
-    reg_term = torch.sum(torch.where(roi, logdet, 0.0), dim=-1) / nroi
-    loss = data_term + reg_weight * reg_term
+    if cov_src is None:
+        md = torch.sum(diff * diff, dim=-1)
+        loss = torch.sum(torch.where(roi, md, 0.0), dim=-1) / nroi
+    else:
+        sigma_src = span_cov(cov_src)
+        sigma_assoc = _rows(cov_tgt_spanned, idx)
+        Rb = R_det[:, None]
+        sigma = sigma_src + _mm(_mm(Rb, sigma_assoc), Rb.transpose(-1, -2))
+        # padded rows carry zero covariance: inverting them explodes the
+        # backward (1/det^2) into inf * masked-0 = NaN, so they become I
+        eye = torch.eye(3, dtype=sigma.dtype, device=sigma.device)
+        sigma = torch.where(assoc_valid[..., None, None], sigma, eye)
+        sigma_inv, det = inv3x3(sigma)
+        md = torch.sum(diff * _mv(sigma_inv, diff), dim=-1)
+        data_term = torch.sum(torch.where(roi, md, 0.0), dim=-1) / nroi
+        logdet = 0.5 * torch.log(torch.clamp(det, min=1e-20))
+        reg_term = torch.sum(torch.where(roi, logdet, 0.0), dim=-1) / nroi
+        loss = data_term + reg_weight * reg_term
 
     # inner ICP loop, all stop-gradient
     with torch.no_grad():
@@ -158,14 +165,16 @@ def consistency_loss_pairs(src, src_mask, src_normal, cov_src, tgt,
                            tgt_mask, cov_tgt, R_pred, *,
                            penalize_ratio: float, reg_weight: float,
                            icp_iter: int):
-    """src/tgt (P, N, 3); masks (P, N); cov_* (P, N, 7); R_pred
+    """src/tgt (P, N, 3); masks (P, N); cov_* (P, N, 7), or None for
+    the covariance-free data term (the hier-points consistency); R_pred
     (P, 3, 3).  ``tgt`` must already be warped by the predicted motion.
     Returns (mean loss, res_R (P, 3, 3), res_t (P, 3))."""
     if cov_src is None or cov_tgt is None:
-        raise NotImplementedError(
-            "the covariance-free consistency (hier points) is not ported")
+        cov_src = cov_tgt_spanned = None
+    else:
+        cov_tgt_spanned = span_cov(cov_tgt)
     loss, res_R, res_t = consistency_pair(
         src, src_mask, src_normal, cov_src, tgt, tgt_mask,
-        span_cov(cov_tgt), R_pred, penalize_ratio=penalize_ratio,
+        cov_tgt_spanned, R_pred, penalize_ratio=penalize_ratio,
         reg_weight=reg_weight, icp_iter=icp_iter)
     return torch.mean(loss), res_R, res_t

@@ -1,7 +1,11 @@
 """Total training objective: pose + pyramid + self-supervised consistency
 (counterpart of ``rslo_tpu/losses/objective.py``).
 
-Before ``warmup_steps`` the consistency term sees identity rotation and
+The consistency runs on the middle net's voxel points with their
+covariances, or with ``use_hier_points`` on the offline hier clouds
+without covariances; the cross-normal VFE's ``normal_gt`` weights the
+association in place of the network-input normals.  Before
+``warmup_steps`` the consistency term sees identity rotation and
 zero translation and runs ``warmup_icp_iter`` inner ICP iterations;
 pseudo ego-motion targets come from the ICP-refined predictions; the
 pyramid tq-map targets are regenerated from them each step.  The warmup
@@ -16,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config.schema import LossCfg
+from ..data.prepare import dequantize_points
 from ..geometry import (generate_tq_map, hemisphere, matrix_to_quat,
                         quat_to_matrix)
 from .adaptive import adaptive_weighted_l2
@@ -57,16 +62,8 @@ def compute_objective(preds: Dict[str, Any], example: Dict[str, Any],
     C_loss = torch.zeros((), device=dev)
 
     if self_supervised:
-        if cfg.use_hier_points and "hier_points" in example:
-            raise NotImplementedError(
-                "the hier-points consistency branch is not ported")
-        if "normal_gt" in preds:
-            raise NotImplementedError(
-                "the cross-normal (normal_gt) consistency branch is not "
-                "ported")
         L = preds["seq_length"]
         feats = preds["voxel_features"]
-        covs = preds["voxel_covs"]
         masks = preds["voxel_masks"]
         V = feats[0].shape[0]
         stride = max(1, -(-V // cfg.max_loss_points))
@@ -82,14 +79,38 @@ def compute_objective(preds: Dict[str, Any], example: Dict[str, Any],
             return f[:, 0:6]
 
         pairs = _pair_indices(L)
-        src_pts = torch.stack([pts_of(i) for i, _ in pairs]).float()
-        src_mask = torch.stack([sub(masks[i]) for i, _ in pairs])
-        src_cov = torch.stack([sub(covs[i]) for i, _ in pairs]).float()
-        tgt_pts = torch.stack([pts_of(j) for _, j in pairs]).float()
-        tgt_mask = torch.stack([sub(masks[j]) for _, j in pairs])
-        tgt_cov = torch.stack([sub(covs[j]) for _, j in pairs]).float()
+        use_hier = cfg.use_hier_points and "hier_points" in example
+        if use_hier:
+            # the consistency on the offline hier clouds (xyz + normals),
+            # with no covariance modeling
+            hp = dequantize_points(example["hier_points"]).float()
+            hm = example["hier_mask"]
+            stride_h = max(1, -(-hp.shape[1] // cfg.max_loss_points))
+
+            def subh(x):
+                return x[::stride_h][:cfg.max_loss_points]
+
+            src_pts = torch.stack([subh(hp[i]) for i, _ in pairs])
+            src_mask = torch.stack([subh(hm[i]) for i, _ in pairs])
+            tgt_pts = torch.stack([subh(hp[j]) for _, j in pairs])
+            tgt_mask = torch.stack([subh(hm[j]) for _, j in pairs])
+            src_cov = tgt_cov = None
+        else:
+            covs = preds["voxel_covs"]
+            src_pts = torch.stack([pts_of(i) for i, _ in pairs]).float()
+            src_mask = torch.stack([sub(masks[i]) for i, _ in pairs])
+            src_cov = torch.stack([sub(covs[i]) for i, _ in pairs]).float()
+            tgt_pts = torch.stack([pts_of(j) for _, j in pairs]).float()
+            tgt_mask = torch.stack([sub(masks[j]) for _, j in pairs])
+            tgt_cov = torch.stack([sub(covs[j]) for _, j in pairs]).float()
         icp_iter = cfg.warmup_icp_iter if warmup else cfg.icp_iter
-        src_normals = src_pts[..., 3:6].detach()
+        # cross-normal mode: the finer supervision normals weight the
+        # association instead of the network-input normals
+        if "normal_gt" in preds and not use_hier:
+            src_normals = torch.stack(
+                [sub(preds["normal_gt"][i]) for i, _ in pairs]).detach()
+        else:
+            src_normals = src_pts[..., 3:6].detach()
 
         # one consistency term per pyramid level of odometry; the ICP
         # corrections compose across levels

@@ -1,6 +1,9 @@
-"""Top-level odometry network: mean VFE features -> middle (+cov) ->
-BEV pair encoder/decoder -> ego-motion vote (counterpart of
-``rslo_tpu/models/net.py``; mean-mode examples).  The middle is
+"""Top-level odometry network: VFE -> middle (+cov) -> BEV pair
+encoder/decoder -> ego-motion vote (counterpart of
+``rslo_tpu/models/net.py``).  An example carries either the per-voxel
+point stacks (``voxels``), which ``cfg.vfe.name``'s encoder
+(``models/vfe.py``) turns into features, or those features already
+(``voxel_features``, mean-mode preparation).  The middle is
 ``cfg.middle.name``: ``SparseMiddleCov`` (sparse convs over per-frame
 geometry) or ``PillarMiddleCov`` (dense 2-D convs over a pillar image,
 no geometry).
@@ -25,6 +28,7 @@ from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
                      build_band_geometry, build_geometry)
 from .middle_pillar import PillarMiddleCov
+from .vfe import VFES
 
 
 # flax's truncated_normal: N(0, 1) cut at +-2, then scaled by
@@ -121,22 +125,29 @@ class OdomNet(nn.Module):
     def forward(self, example: Dict[str, Any],
                 with_cov: bool = True) -> dict:
         """example (single sample, no batch dim), as prepare_example
-        emits in mean mode:
-          voxel_features: (L, V, F) float
+        emits it:
+          voxel_features: (L, V, F) float (mean mode), or
+          voxels:         (L, V, P, F) float and num_points (L, V) int32
           coords:         (L, V, 3) int32 zyx (-1 padding)
           voxel_mask:     (L, V) bool
-        Returns the prediction dict (pair-major tensors);
+        Returns the prediction dict (pair-major tensors), with
+        ``normal_gt`` (list[L] of (V, 3)) from the cross-normal VFE;
         ``with_cov=False`` skips the covariance decoder and leaves
         ``voxel_covs`` out."""
-        if "voxel_features" not in example:
-            raise NotImplementedError(
-                "only mean-mode examples (voxel_features) are ported")
         coords = example["coords"]
         vmask = example["voxel_mask"]
         L = coords.shape[0]
-        bevs, covs, feats = [], [], []
+        vfe = VFES[self.cfg.vfe.name]
+        bevs, covs, feats, normal_gts = [], [], [], []
         for t in range(L):
-            f = example["voxel_features"][t]
+            if "voxel_features" in example:
+                f = example["voxel_features"][t]
+            else:
+                f = vfe(example["voxels"][t], example["num_points"][t],
+                        self.cfg.vfe.num_input_features)
+            if isinstance(f, tuple):             # the cross-normal VFE
+                f, gt = f
+                normal_gts.append(gt)
             bev, cov = self.frame_features(f, coords[t], vmask[t],
                                            with_cov)
             bevs.append(bev[None])
@@ -148,6 +159,8 @@ class OdomNet(nn.Module):
         if with_cov:
             preds["voxel_covs"] = covs         # list[L] of (V, 7)
         preds["voxel_masks"] = [vmask[t] for t in range(L)]
+        if normal_gts:
+            preds["normal_gt"] = normal_gts    # cross-normal supervision
         preds["seq_length"] = L
         return preds
 

@@ -1,11 +1,15 @@
 """Fixed-capacity point-cloud voxelization on torch tensors (counterpart
-of ``rslo_tpu/ops/voxelize.py``; the sorted-mean path only).
+of ``rslo_tpu/ops/voxelize.py``): the (V, P, F) point stack
+(``voxelize``) and the sorted-mean path (``voxelize_sorted_mean``).
 
 Voxels come out sorted by linearized (z, y, x) id.  At most
-``max_voxels`` voxels are kept (the largest ids are dropped) and only
-the first ``max_points`` points of each voxel, in stable-sorted input
-order, contribute to its mean.  Coordinates are (z, y, x), -1 on
-padding rows.
+``max_voxels`` voxels are kept (the largest ids are dropped) and at most
+``max_points`` points of each voxel, its first in stable-sorted input
+order.  Coordinates are (z, y, x), -1 on padding rows.  ``voxelize``
+also applies the optional block ground filter (``height_threshold >=
+0``: per BEV block of ``block_size`` voxels, points lower than the
+block's lowest z + ``height_threshold`` are dropped); the mean path
+does not, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -31,6 +35,22 @@ class VoxelizerConfig(NamedTuple):
         return np.round((pr[3:] - pr[:3]) / vs).astype(np.int64)
 
 
+class Voxels(NamedTuple):
+    """voxels (V, P, F) per-voxel point stacks, zero-padded; coords
+    (V, 3) int32 zyx (-1 padding); num_points (V,) int32 valid points of
+    each slot; num_voxels () int32; point_voxel (N,) int32 slot of each
+    input point (-1 dropped)."""
+    voxels: torch.Tensor
+    coords: torch.Tensor
+    num_points: torch.Tensor
+    num_voxels: torch.Tensor
+    point_voxel: torch.Tensor
+
+    @property
+    def mask(self) -> torch.Tensor:
+        return self.num_points > 0
+
+
 class MeanVoxels(NamedTuple):
     """features (V, F) per-voxel means; coords (V, 3) int32 zyx (-1
     padding); num_points (V,) int32 points in each voxel's mean;
@@ -47,32 +67,49 @@ class MeanVoxels(NamedTuple):
         return self.num_points > 0
 
 
-def voxelize_sorted_mean(points: torch.Tensor, point_mask: torch.Tensor,
-                         config: VoxelizerConfig) -> MeanVoxels:
-    """Stable-sort voxelization emitting per-voxel MEAN features.
+def _ground_filter(z, cxyz, valid, config):
+    """``valid`` without the points below their BEV block's lowest z +
+    ``height_threshold``.  The block minimum is an order-free
+    ``scatter_reduce`` amin; invalid points are parked in an extra
+    block."""
+    nx, ny, _ = (int(g) for g in config.grid_size)
+    bs = config.block_size
+    bx, by = (nx + bs - 1) // bs, (ny + bs - 1) // bs
+    bid = (cxyz[:, 1] // bs) * bx + cxyz[:, 0] // bs
+    bid = torch.where(valid, bid, bx * by).long()
+    zbig = torch.where(valid, z, torch.inf)
+    block_min = torch.full((bx * by + 1,), torch.inf, dtype=z.dtype,
+                           device=z.device)
+    block_min = block_min.scatter_reduce(0, bid, zbig, "amin")
+    return valid & (z >= block_min[bid] + config.height_threshold)
+
+
+def voxelize(points: torch.Tensor, point_mask: torch.Tensor,
+             config: VoxelizerConfig) -> Voxels:
+    """Voxelize a padded point cloud into per-voxel point stacks.
 
     points: (N, F) float, columns 0:3 are x, y, z; point_mask: (N,) bool.
 
-    The per-voxel sums are taken over a (V+1, P, F) stack filled by
-    unique (slot, rank) writes and added rank by rank, i.e. each voxel's
-    points in input order.  That makes them deterministic on the GPU,
-    where a float scatter-add is not.
+    A stable sort by linear (z, y, x) voxel id gives each point its slot
+    (its voxel's rank among the kept voxels) and its rank within the
+    voxel.  Each kept (slot, rank) is written once, and each slot's
+    coords once; every dropped point goes to the drop bin V, a row the
+    returned tensors leave out, so no two writes meet in what is
+    returned (a CUDA ``index_put_`` picks among duplicates in no fixed
+    order).
     """
-    if config.height_threshold >= 0:
-        raise NotImplementedError(
-            "the block ground filter (height_threshold >= 0) is not "
-            "ported; the shipped configs disable it")
     N, F = points.shape
     V, P = config.max_voxels, config.max_points
     dev = points.device
+    nx, ny, nz = (int(g) for g in config.grid_size)
     pr = torch.tensor(config.point_cloud_range, dtype=points.dtype,
                       device=dev)
     vs = torch.tensor(config.voxel_size, dtype=points.dtype, device=dev)
-    nx, ny, nz = (int(g) for g in config.grid_size)
-
     cxyz = torch.floor((points[:, :3] - pr[:3]) / vs).to(torch.int32)
     bounds = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
     valid = torch.all((cxyz >= 0) & (cxyz < bounds), dim=-1) & point_mask
+    if config.height_threshold >= 0:
+        valid = _ground_filter(points[:, 2], cxyz, valid, config)
     vid = (cxyz[:, 2] * ny + cxyz[:, 1]) * nx + cxyz[:, 0]
     sentinel = nx * ny * nz
     vid = torch.where(valid, vid, sentinel)
@@ -85,32 +122,51 @@ def voxelize_sorted_mean(points: torch.Tensor, point_mask: torch.Tensor,
     voxel_slot = torch.cumsum(head, 0, dtype=torch.int32) - 1
     seg_start = torch.cummax(torch.where(head, iota, -1), 0).values
     rank = iota - seg_start
-    keep_s = (svid < sentinel) & (voxel_slot < V) & (rank < P)
-    slot_s = torch.where(keep_s, voxel_slot, V).long()   # V = drop bin
+    keep = (svid < sentinel) & (voxel_slot < V) & (rank < P)
+    slot = torch.where(keep, voxel_slot, V).long()     # V = drop bin
+    rnk = torch.where(keep, rank, 0).long()
 
-    stack = torch.zeros((V + 1, P, F), dtype=points.dtype, device=dev)
-    stack[slot_s, torch.where(keep_s, rank, 0).long()] = torch.where(
-        keep_s[:, None], points[order], 0.0)
-    fsum = stack[:V, 0]
-    for r in range(1, P):
-        fsum = fsum + stack[:V, r]
+    voxels = torch.zeros((V + 1, P, F), dtype=points.dtype, device=dev)
+    voxels[slot, rnk] = torch.where(keep[:, None], points[order], 0.0)
     num_points = torch.zeros(V + 1, dtype=torch.int32, device=dev)
-    num_points = num_points.index_add_(0, slot_s,
-                                       keep_s.to(torch.int32))[:V]
-    mean = fsum / torch.clamp(num_points, min=1)[:, None].to(points.dtype)
-
-    ids_arr = torch.full((V + 1,), sentinel, dtype=torch.int32, device=dev)
-    ids_arr[slot_s] = torch.where(keep_s, svid, sentinel)
-    ids_arr = ids_arr[:V]
-    mask_v = num_points > 0
-    zz = ids_arr // (ny * nx)
-    yy = (ids_arr // nx) % ny
-    xx = ids_arr % nx
-    coords = torch.where(mask_v[:, None], torch.stack([zz, yy, xx], -1),
-                         -1).to(torch.int32)
-    mean = torch.where(mask_v[:, None], mean, 0.0)
-
+    num_points = num_points.index_add_(0, slot, keep.to(torch.int32))
+    # a voxel's coords are written once, by its first point
+    first = keep & head
+    coords = torch.full((V + 1, 3), -1, dtype=torch.int32, device=dev)
+    coords[torch.where(first, slot, V)] = torch.where(
+        first[:, None], cxyz[order].flip(-1), -1)
     num_voxels = torch.sum(head & (voxel_slot < V)).to(torch.int32)
-    pslot = torch.empty(N, dtype=torch.int32, device=dev)
-    pslot[order] = torch.where(keep_s, voxel_slot, -1)
-    return MeanVoxels(mean, coords, num_points, num_voxels, pslot)
+    point_voxel = torch.empty(N, dtype=torch.int32, device=dev)
+    point_voxel[order] = torch.where(keep, voxel_slot, -1)
+    return Voxels(voxels[:V], coords[:V], num_points[:V], num_voxels,
+                  point_voxel)
+
+
+def rank_sum(voxels: torch.Tensor) -> torch.Tensor:
+    """(V, P, F) -> (V, F): the sum over the point axis, rank by rank
+    (each voxel's points in input order), so that the mean path and the
+    point-stack VFEs round alike."""
+    total = voxels[:, 0]
+    for r in range(1, voxels.shape[1]):
+        total = total + voxels[:, r]
+    return total
+
+
+def voxelize_sorted_mean(points: torch.Tensor, point_mask: torch.Tensor,
+                         config: VoxelizerConfig) -> MeanVoxels:
+    """Per-voxel MEAN features of ``voxelize``'s stacks: the same voxels,
+    slots and point cap.  As in the JAX package, the block ground filter
+    is not applied here (``height_threshold`` is ignored).
+
+    points: (N, F) float, columns 0:3 are x, y, z; point_mask: (N,) bool.
+
+    The sums are ``rank_sum``s of the stacks, which unique (slot, rank)
+    writes fill: deterministic on the GPU, where a float scatter-add is
+    not.
+    """
+    vox = voxelize(points, point_mask,
+                   config._replace(height_threshold=-1.0))
+    n = torch.clamp(vox.num_points, min=1)[:, None].to(points.dtype)
+    mean = torch.where(vox.mask[:, None], rank_sum(vox.voxels) / n, 0.0)
+    return MeanVoxels(mean, vox.coords, vox.num_points, vox.num_voxels,
+                      vox.point_voxel)

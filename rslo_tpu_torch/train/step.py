@@ -21,14 +21,17 @@ from .state import TrainState
 def prepare_batch(batch: Dict[str, torch.Tensor],
                   cfg: PipelineCfg) -> Dict[str, torch.Tensor]:
     """Raw batch {"points" (L, N, F), "point_mask" (L, N), and for
-    training "odometry" (P, 7)} -> the model's mean-mode example."""
-    if not mean_vfe_ok(cfg):
-        raise NotImplementedError(
-            f"VFE {cfg.vfe.name!r} is not ported; only the mean VFE")
+    training "odometry" (P, 7) and optionally the hier clouds
+    "hier_points" (L, Nh, 6), "hier_mask" (L, Nh)} -> the model's
+    example: pre-encoded mean features for the mean VFE, the point
+    stacks for any other (``mean_vfe_ok``), with the training keys
+    carried along."""
     example = prepare_example(batch["points"], batch["point_mask"],
-                              voxelizer_config(cfg), mean_mode=True)
-    if "odometry" in batch:
-        example["odometry"] = batch["odometry"]
+                              voxelizer_config(cfg),
+                              mean_mode=mean_vfe_ok(cfg))
+    for k in ("odometry", "hier_points", "hier_mask"):
+        if k in batch:
+            example[k] = batch[k]
     return example
 
 

@@ -54,3 +54,51 @@ def test_bev_net_matches_jax(precision):
                                    **tol)
     # the vote is a real function of the input, not the identity bias
     assert float(np.abs(np_(ref["odometry"])[:, :3]).max()) > 1e-2
+
+
+def test_tq_heads_start_at_the_identity_pose():
+    """Torch twin of the tq heads' identity-bias landmine (JAX's
+    ``identity_pose_bias``): at init every 7-channel tq head's bias is
+    [0,0,0, 1,0,0,0] in both packages, the same heads on both sides; on
+    an all-empty input the vote's quaternion is finite and non-zero and
+    its gradient finite (a zero bias would normalize q = 0)."""
+    from rslo_tpu_torch.models.net import OdomNet
+    cfg = port_cfg("f32")
+    pc_range = cfg.voxelizer.point_cloud_range
+    x = np.zeros((2, 16, 16, 2 * cfg.odom.num_input_features), np.float32)
+    jmod = JaxBEV(cfg.odom, pc_range)
+    variables = jax.jit(lambda k, a: jmod.init(k, a, train=False))(
+        jax.random.PRNGKey(0), jnp.asarray(x))
+    params = variables["params"]
+    jax_heads = sorted(k for k, v in params.items()
+                       if "bias" in v and v["bias"].shape == (7,))
+    identity = np.array([0, 0, 0, 1, 0, 0, 0], np.float32)
+    assert len(jax_heads) >= 3
+    for k in jax_heads:
+        np.testing.assert_array_equal(np.asarray(params[k]["bias"]),
+                                      identity, k)
+    net = OdomNet(to_port(cfg), torch.Generator().manual_seed(0))
+    port_heads = sorted(n for n, m in net.bev_net.named_children()
+                        if isinstance(m, torch.nn.Conv2d) and
+                        m.out_channels == 7)
+    assert port_heads == jax_heads
+    for k in port_heads:
+        np.testing.assert_array_equal(
+            np_(getattr(net.bev_net, k).bias), identity, k)
+
+    def jax_q(p):
+        return jmod.apply({"params": p,
+                           "batch_stats": variables["batch_stats"]},
+                          jnp.asarray(x), train=False)["odometry"][:, 3:]
+    jq = np.asarray(jax.jit(jax_q)(params))
+    jg = jax.jit(jax.grad(lambda p: jnp.sum(jax_q(p))))(params)
+    assert all(np.isfinite(np.asarray(g)).all()
+               for g in jax.tree.leaves(jg))
+    out = net.bev_net.eval()(tt(x))
+    q = out["odometry"][:, 3:]
+    q.sum().backward()
+    for qq in (np_(q), jq):
+        assert np.isfinite(qq).all()
+        assert (np.linalg.norm(qq, axis=1) > 0.5).all()
+    for name, p in net.bev_net.named_parameters():
+        assert p.grad is None or torch.isfinite(p.grad).all(), name

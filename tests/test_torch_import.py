@@ -33,14 +33,16 @@ def test_port_modules_import_without_jax():
     # eval, data and logging modules among them, and the training data
     # path, the pillar middle and the parameter surgery, and the
     # refinement package (pgo/) with geometry/warp.py and the shared
-    # matmul precision policy (ops/precision.py)
-    assert int(n) >= 56, out.stdout
+    # matmul precision policy (ops/precision.py), and the data build
+    # (utils/world.py, data/normals.py) with the VFEs (models/vfe.py)
+    assert int(n) >= 59, out.stdout
     assert leaked.strip() == "[]", out.stdout
 
 
 def test_port_cli_imports_without_jax():
     """``python -m rslo_tpu_torch.cli`` loads no JAX, h5py or
-    matplotlib, and shows its ``train`` and ``evaluate`` verbs."""
+    matplotlib, and shows its ``create_hdf5``, ``train`` and
+    ``evaluate`` verbs."""
     env = dict(os.environ, PYTHONPATH=REPO)
     code = ("import sys, rslo_tpu_torch.cli; print(sorted(m for m in "
             "sys.modules if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
@@ -53,7 +55,7 @@ def test_port_cli_imports_without_jax():
                             "--help"], cwd=REPO, env=env,
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "evaluate" in usage.stdout
-    assert "train" in usage.stdout
+    assert "train" in usage.stdout and "create_hdf5" in usage.stdout
 
 
 def _imported_roots(path):
@@ -136,6 +138,33 @@ def test_refinement_modules_import_without_jax():
         code = (f"import sys, {name}; print(sorted(m for m in sys.modules "
                 f"if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
                 f"'h5py', 'matplotlib')))")
+        out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                             env=env, capture_output=True, text=True,
+                             timeout=120)
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.strip() == "[]", (name, out.stdout)
+        path = os.path.join(REPO, *name.split(".")) + ".py"
+        assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}
+
+
+_DATA_BUILD_MODULES = ("rslo_tpu_torch.utils.world",
+                       "rslo_tpu_torch.data.normals",
+                       "rslo_tpu_torch.data.hdf5_store",
+                       "rslo_tpu_torch.models.vfe")
+
+
+def test_data_build_modules_import_without_jax():
+    """The data build's modules (the raycast world, the normals and their
+    native build, the store writer) and the VFEs, in one fresh process
+    each: no jax, flax, rslo_tpu, h5py, matplotlib or scipy loaded (h5py
+    only once a store is built or opened, scipy only by the plain
+    normals), and no import statement of theirs names jax, flax or
+    rslo_tpu."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for name in _DATA_BUILD_MODULES:
+        code = (f"import sys, {name}; print(sorted(m for m in sys.modules "
+                f"if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
+                f"'h5py', 'matplotlib', 'scipy')))")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                              env=env, capture_output=True, text=True,
                              timeout=120)

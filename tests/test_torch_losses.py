@@ -1,9 +1,11 @@
 """Port the training losses and the geometry they use (rslo_tpu_torch.
 geometry, losses) against the JAX package: quaternion and Kabsch
-helpers, tq-map encoding, the adaptive L2 loss, the consistency loss
-and the whole objective in warmup, post-warmup and supervised modes
-(loss, aux terms, ICP correction and gradients), plus a torch twin of
-each numerical-landmine test of the JAX suite.
+helpers, tq-map encoding, the adaptive L2 losses and ``l2_loss``, the
+consistency loss with and without covariances, and the whole objective
+in warmup, post-warmup and supervised modes, on the hier clouds (f32 and
+int16) and with the cross-normal supervision normals (loss, aux terms,
+ICP correction and gradients), plus a torch twin of each
+numerical-landmine test of the JAX suite.
 
 On the CPU the JAX consistency loss would search with the XLA scan,
 which expands the distance and can pick another point at near-ties; the
@@ -20,11 +22,14 @@ from torch_port_helpers import np_, port_cfg, to_port, tt
 
 import rslo_tpu.losses.consistency as jcons
 from rslo_tpu import geometry as jgeo
+from rslo_tpu.data.loader import quantize_points
+from rslo_tpu.losses import adaptive as jadaptive
 from rslo_tpu.losses.adaptive import adaptive_weighted_l2 as jax_adaptive
 from rslo_tpu.losses.objective import compute_objective as jax_objective
 from rslo_tpu.ops.chamfer import nn_search_pallas
 from rslo_tpu_torch import geometry as geo
 from rslo_tpu_torch.losses import consistency as cons
+from rslo_tpu_torch.losses import adaptive
 from rslo_tpu_torch.losses.adaptive import adaptive_weighted_l2
 from rslo_tpu_torch.losses.objective import (compute_objective,
                                              resize_nearest)
@@ -171,6 +176,51 @@ def test_adaptive_weighted_l2_matches_jax(masked, gamma):
     np.testing.assert_allclose(float(a_t.grad), float(ga), **LOSS_TOL)
 
 
+@pytest.mark.parametrize("form", ["quat", "matrix"])
+@pytest.mark.parametrize("masked,gamma", [(False, 0.0), (True, 2.0)])
+def test_adaptive_weighted_l2_rmatrix_matches_jax(form, masked, gamma):
+    rng = np.random.default_rng(9)
+    pred = _quats(rng, 24, 0.3).reshape(3, 8, 4)
+    tgt = _quats(rng, 24, 0.3).reshape(3, 8, 4)
+    if form == "matrix":
+        pred, tgt = (np.asarray(jgeo.quat_to_matrix(jnp.asarray(q)))
+                     .reshape(3, 8, 9) for q in (pred, tgt))
+    mask = (rng.random((3, 8)) < 0.6).astype(np.float32) if masked \
+        else None
+    kw = dict(focal_gamma=gamma, weight=0.7)
+    p_t = tt(pred).requires_grad_()
+    a_t = torch.tensor(np.float32(0.4), requires_grad=True)
+    out = adaptive.adaptive_weighted_l2_rmatrix(
+        p_t, tt(tgt), a_t, None if mask is None else tt(mask), **kw)
+    out.backward()
+    ref, (gp, ga) = jax.jit(jax.value_and_grad(
+        lambda p, a: jadaptive.adaptive_weighted_l2_rmatrix(
+            p, jnp.asarray(tgt), a, None if mask is None else
+            jnp.asarray(mask), **kw), argnums=(0, 1)))(
+        jnp.asarray(pred), jnp.float32(0.4))
+    np.testing.assert_allclose(float(out), float(ref), **LOSS_TOL)
+    _check_grad(p_t.grad, gp, "pred")
+    np.testing.assert_allclose(float(a_t.grad), float(ga), **LOSS_TOL)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_l2_loss_matches_jax(masked):
+    rng = np.random.default_rng(10)
+    pred = rng.normal(size=(4, 6, 3)).astype(np.float32)
+    tgt = rng.normal(size=(4, 6, 3)).astype(np.float32)
+    mask = (rng.random((4, 6, 1)) < 0.5).astype(np.float32) if masked \
+        else None
+    p_t = tt(pred).requires_grad_()
+    out = adaptive.l2_loss(p_t, tt(tgt), None if mask is None else
+                           tt(mask), weight=2.5)
+    out.backward()
+    ref, gp = jax.jit(jax.value_and_grad(lambda p: jadaptive.l2_loss(
+        p, jnp.asarray(tgt), None if mask is None else jnp.asarray(mask),
+        weight=2.5)))(jnp.asarray(pred))
+    np.testing.assert_allclose(float(out), float(ref), **LOSS_TOL)
+    _check_grad(p_t.grad, gp, "pred")
+
+
 # -- consistency and the objective -------------------------------------------
 
 def _cloud(rng, n, shift):
@@ -238,14 +288,44 @@ def _join(preds, odom, pmaps, covs):
     return out
 
 
-@pytest.mark.parametrize("mode", ["warmup", "post_warmup", "supervised"])
+def _hier(seed, quantized, n=700):
+    """Offline hier clouds of L frames (xyz + unit normals) and their
+    masks, f32 or int16 as the loader's transfer quantization ships
+    them."""
+    rng = np.random.default_rng(seed + 200)
+    base, _ = _cloud(rng, n, 0.0)
+    pts, masks = [], []
+    for t in range(L):
+        nrm = rng.normal(size=(n, 3)).astype(np.float32)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        p = base + rng.normal(0, 0.03, base.shape).astype(np.float32) + \
+            np.float32(0.1 * t)
+        pts.append(np.concatenate([p, nrm], 1))
+        masks.append(np.arange(n) < n - 37 * t)        # ragged counts
+    pts = np.stack(pts).astype(np.float32)
+    return {"hier_points": quantize_points(pts) if quantized else pts,
+            "hier_mask": np.stack(masks)}
+
+
+@pytest.mark.parametrize("mode", ["warmup", "post_warmup", "supervised",
+                                  "hier_f32", "hier_int16", "normal_gt"])
 def test_objective_matches_jax(pallas_nn, mode):
     cfg = port_cfg("f32")
-    loss_cfg = cfg.loss.__class__(**{**cfg.loss.__dict__,
-                                     "max_loss_points": 256})
+    loss_cfg = cfg.loss.__class__(**{
+        **cfg.loss.__dict__, "max_loss_points": 256,
+        "use_hier_points": mode.startswith("hier")})
     pc_range = cfg.voxelizer.point_cloud_range
     preds = _preds(4)
     example = _example(4)
+    if mode.startswith("hier"):
+        example.update(_hier(4, mode == "hier_int16"))
+        assert example["hier_points"].dtype == (
+            np.int16 if mode == "hier_int16" else np.float32)
+    if mode == "normal_gt":
+        rng = np.random.default_rng(44)
+        preds["normal_gt"] = [
+            (g / np.linalg.norm(g, axis=1, keepdims=True)).astype(
+                np.float32) for g in rng.normal(size=(L, 600, 3))]
     warmup = mode == "warmup"
     selfsup = mode != "supervised"
     alphas = {"rot": np.float32(-2.5), "trans": np.float32(0.3)}
@@ -281,13 +361,21 @@ def test_objective_matches_jax(pallas_nn, mode):
                                jax.tree.leaves(jgrads),
                                ["odometry", "pyr0", "pyr1", "pyr2",
                                 "cov0", "cov1", "cov2"]):
-        if selfsup or not what.startswith("cov"):
+        if not what.startswith("cov"):
             _check_grad(got.grad, want, f"{mode} d{what}")
+        elif selfsup:
+            # the hier-cloud consistency takes no covariances: JAX's
+            # gradient is zero where the port's never reaches them
+            grad = torch.zeros_like(got) if got.grad is None else got.grad
+            assert (got.grad is None) == mode.startswith("hier"), what
+            _check_grad(grad, want, f"{mode} d{what}")
     for k in alphas:
         np.testing.assert_allclose(float(ta[k].grad), float(jga[k]),
                                    err_msg=k, **LOSS_TOL)
     if mode == "warmup":     # identity R: no consistency grad to odom
         assert float(ref_aux["consistency_loss"]) > 0
+    if mode.startswith("hier"):
+        assert not np.abs(np.asarray(jgrads[2][0])).any()
 
 
 @pytest.mark.parametrize("icp_iter", [1, 3])
@@ -326,6 +414,41 @@ def test_consistency_pairs_match_jax(pallas_nn, icp_iter):
     np.testing.assert_allclose(np_(res_t), np.asarray(jt), atol=1e-5)
     for a, g, what in zip(args, jg, ("cov_src", "cov_tgt", "tgt")):
         _check_grad(a.grad, g, what)
+
+
+@pytest.mark.parametrize("icp_iter", [1, 3])
+def test_consistency_without_covariances_matches_jax(pallas_nn, icp_iter):
+    """The hier-points data term: the masked squared distance with no
+    log-det regularizer (cov_src and cov_tgt None)."""
+    preds = _preds(7, n=500)
+    rng = np.random.default_rng(7)
+    P = 3
+    src = np.stack([preds["voxel_features"][i][:, :3] for i in (0, 0, 1)])
+    nrm = np.stack([preds["voxel_features"][i][:, 4:7] for i in (0, 0, 1)])
+    tgt = np.stack([preds["voxel_features"][j][:, :3] for j in (1, 2, 2)])
+    sm = np.stack([preds["voxel_masks"][i] for i in (0, 0, 1)])
+    tm = np.stack([preds["voxel_masks"][j] for j in (1, 2, 2)])
+    R = np.asarray(jgeo.quat_to_matrix(jnp.asarray(_quats(rng, P, 0.05))))
+    kw = dict(penalize_ratio=0.97, reg_weight=0.005, icp_iter=icp_iter)
+
+    def jax_fn(tgt):
+        return jcons.consistency_loss_pairs(
+            jnp.asarray(src), jnp.asarray(sm), jnp.asarray(nrm), None,
+            tgt, jnp.asarray(tm), None, jnp.asarray(R), jnp.zeros((P, 3)),
+            **kw)
+    (jl, jR, jt), vjp = jax.vjp(jax.jit(jax_fn), jnp.asarray(tgt))
+    (jg,) = vjp((jnp.float32(1.0), jnp.zeros_like(jR), jnp.zeros_like(jt)))
+
+    t_tgt = tt(tgt).requires_grad_()
+    loss, res_R, res_t = cons.consistency_loss_pairs(
+        tt(src), tt(sm), tt(nrm), None, t_tgt, tt(tm), None, tt(R), **kw)
+    loss.backward()
+    np.testing.assert_allclose(float(loss), float(jl), **LOSS_TOL)
+    np.testing.assert_allclose(np_(res_R), np.asarray(jR), atol=1e-5)
+    np.testing.assert_allclose(np_(res_t), np.asarray(jt), atol=1e-5)
+    _check_grad(t_tgt.grad, jg, "tgt")
+    # no regularizer: the loss is a mean of squared distances
+    assert float(loss) > 0
 
 
 # -- torch twins of the JAX suite's numerical-landmine tests -----------------

@@ -1,8 +1,9 @@
 """Port the self-supervised train step (rslo_tpu_torch.train) against
 the JAX package: one step's loss, aux terms, per-leaf gradients and BN
 running statistics; then three steps of the optimizer (clip, decay
-mask, OneCycle lr and momentum) compared parameter by parameter; the
-OneCycle schedules; and the port's initializers against flax's.
+mask, OneCycle lr and momentum) compared parameter by parameter; one
+step on the offline hier clouds (``use_hier_points``); the OneCycle
+schedules; and the port's initializers against flax's.
 
 The JAX side is ``jax.value_and_grad`` of ``make_train_step``'s own
 loss function and the JAX ``build_optimizer`` chain, which is what the
@@ -28,6 +29,7 @@ from rslo_tpu.losses.objective import compute_objective as jax_objective
 from rslo_tpu.models.bev_net import BEVOdomNet as JaxBEV
 from rslo_tpu.models.net import OdomNet as JaxOdomNet
 from rslo_tpu.ops.chamfer import nn_search_pallas
+from rslo_tpu.data.loader import quantize_points
 from rslo_tpu.train import optim as jax_optim
 from rslo_tpu_torch.convert import (flax_path, load_flax_variables,
                                     to_flax_leaf)
@@ -36,7 +38,7 @@ from rslo_tpu_torch.models.net import OdomNet
 from rslo_tpu_torch.train import optim
 from rslo_tpu_torch.train.loop import make_optimizer
 from rslo_tpu_torch.train.state import TrainState
-from rslo_tpu_torch.train.step import train_step
+from rslo_tpu_torch.train.step import loss_and_grads, train_step
 
 L = 3                       # frames per window: 3 pairs
 N_STEPS = 3
@@ -253,6 +255,67 @@ def test_three_steps_params_match_jax(setup):
     n_loose = sum(int(np.sum(v)) for v in loose.values())
     n_all = sum(p.numel() for p in port[0]["params"].values())
     assert n_loose < 0.02 * n_all, (n_loose, n_all)
+
+
+def test_hier_points_step_matches_jax(monkeypatch):
+    """One f32 post-warmup step with ``use_hier_points``: the consistency
+    on the int16-shipped hier clouds, carried by the step into the
+    example; loss terms and per-leaf gradients (the covariance decoder's
+    are zero on both sides)."""
+    cfg = step_cfg()
+    cfg = cfg.replace(loss=dataclasses.replace(cfg.loss,
+                                               use_hier_points=True))
+    batch = _batch(cfg)
+    rng = np.random.default_rng(6)
+    hier = np.concatenate([b[::3, :3] for b in batch["points"]])
+    hier = np.stack([np.concatenate(
+        [hier[:1200] + 0.02 * t, rng.normal(size=(1200, 3))], 1)
+        for t in range(L)]).astype(np.float32)
+    batch["hier_points"] = quantize_points(hier)
+    batch["hier_mask"] = np.arange(1200)[None] < [[1200], [1100], [1000]]
+    jnet = JaxOdomNet(cfg)
+    ex = jax_prepare(jnp.asarray(batch["points"]),
+                     jnp.asarray(batch["point_mask"]), jax_vcfg(cfg),
+                     mean_mode=True)
+    for k in ("odometry", "hier_points", "hier_mask"):
+        ex[k] = jnp.asarray(batch[k])
+    variables = jax_variables(jnet, 1, ex, train=False)
+
+    def loss_fn(params):
+        preds, _ = jnet.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            ex, train=True, mutable=["batch_stats"])
+        out = jax_objective(preds, ex, {"rot": jnp.float32(-2.5),
+                                        "trans": jnp.float32(0.0)},
+                            cfg.loss, cfg.voxelizer.point_cloud_range,
+                            warmup=False)
+        return out.total, out.aux
+    monkeypatch.setattr(jax_consistency, "nn_search", pallas_nn_search)
+    (_, ref_aux), ref_grads = jax.jit(jax.value_and_grad(
+        loss_fn, has_aux=True))(to_jax(variables["params"]))
+
+    pcfg = to_port(cfg)
+    net = load_flax_variables(OdomNet(pcfg), variables)
+    state = TrainState.create(net, make_optimizer(pcfg, net),
+                              {"rot": -2.5, "trans": 0.0})
+    out, grads = loss_and_grads(state, {k: tt(v) for k, v in batch.items()},
+                                pcfg, warmup=False)
+    assert set(out.aux) == set(ref_aux)
+    for key, val in ref_aux.items():
+        np.testing.assert_allclose(float(out.aux[key]), val, err_msg=key,
+                                   **LOSS_TOL)
+    assert float(ref_aux["consistency_loss"]) > 0
+    top = max(float(np.abs(g).max()) for _, g in _flat(ref_grads))
+    zero = 0
+    for name, g in grads.items():
+        if name.startswith("alphas."):
+            continue
+        want = _get(ref_grads, flax_path(name, g.dim())[1])
+        got = to_flax_leaf(name, g)
+        zero += not np.abs(want).any()
+        err = float(np.abs(got - want).max())
+        assert err <= _grad_bound(want, top), (name, err)
+    assert zero > 0          # the covariance decoder gets no gradient
 
 
 def test_bev_net_train_mode_matches_jax():

@@ -10,6 +10,7 @@ Configs: the JAX package's config goes to the JAX side and its
 """
 import dataclasses
 import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -128,3 +129,18 @@ def assert_same(got, want, path="out"):
     else:
         assert type(got) is type(want), (path, type(got), type(want))
         np.testing.assert_array_equal(got, want, err_msg=path)
+
+
+def jax_native_normals():
+    """Load the JAX package's native normals library, which it builds
+    into native/libprep.so on first use.  Test processes running side
+    by side may race on that build, and the loser's load fails once; a
+    failed load is retried after the winner has published the
+    library."""
+    from rslo_tpu.data import normals as jnormals
+    for _ in range(5):
+        if jnormals._load_native():
+            return jnormals._NATIVE
+        jnormals._NATIVE = None
+        time.sleep(2)
+    raise AssertionError("the JAX package's native normals did not load")
