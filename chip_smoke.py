@@ -17,8 +17,9 @@ config warm-started from it; the refined evaluation (pose-graph
 fusion, bundle adjustment, loop closing) through the evaluate verb, and
 each refinement solver on the card against the CPU; last, the data
 build from a rendered world with the hier-cloud and cross-normal
-training it feeds and loop closing on a true revisit.  Phases (each
-one exits non-zero when it fails):
+training it feeds and loop closing on a true revisit; and every BEV-net
+option of the schema, with DenseMiddleCov.  Phases (each one exits
+non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -158,6 +159,26 @@ one exits non-zero when it fails):
      clouds with every 7th point masked; each solve timed on the host
      and profiled on the device; B3 timed at ICP's call (1 x 4096 x
      4096) against its plain version
+ 21. the data build from a rendered world (``data_build_phases``): the
+     KITTI tree, every frame's store record, 2 steps each on the hier
+     clouds and with the cross-normal VFE, and loop closing on the
+     rendered loop
+ 22. every BEV-net option of the schema (``option_phases``), at the
+     shipped configs' full width on the rulebook engine: ``options``
+     (semi-global BN, normalized convs, SE and spatial attention,
+     linear confidence, per-level votes, SVD vote) through the train
+     verb for 4 steps, ``evaluate`` (8 windows) and 8 streamed scans;
+     ``fire`` and ``bottleneck`` blocks, 2 train-verb steps and 8 scans
+     each; ``fc`` (``dense_predict`` false) 2 steps at dropout 0, then
+     ``evaluate`` and 8 scans at the schema's dropout, and a train step
+     at that dropout raises (as in JAX); each step's B1, B2 and B3
+     launches equal ``predicted_launches`` (B3 once per consistency
+     level: 3 under ``multi_level_odom``), a post-warmup step timed with
+     its peak memory; each run's BEV net in f32 on one 96 x 176 x 256
+     pair, card against CPU; DenseMiddleCov at the shipped grid, one
+     forward and backward on a scan's voxel features (finite, peak
+     memory, device ms, no B1-B5 launch), and card against CPU in f32 at
+     a 41 x 128 x 128 grid (the scan's voxels around the sensor)
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -179,7 +200,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-21 beside them) and the result (JSON); the card's
+of phases 14-22 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -280,7 +301,8 @@ POSE_TOL = dict(rtol=1e-5, atol=1e-5)
 # sparse convs a frame without the covariance decoder (streaming, eval)
 ENCODER_CONVS = 14
 # phase 14: windows evaluated on each engine
-EVAL_WINDOWS = {"rulebook": 16, "band": 8, "pillar": 16}
+EVAL_WINDOWS = {"rulebook": 16, "band": 8, "pillar": 16, "options": 8,
+                "fc": 8}
 # the JAX package's run_eval result keys (rslo_tpu/eval/runner.py)
 EVAL_KEYS = {
     "_meta": ["windows", "elapsed_s", "frames_per_s"],
@@ -317,6 +339,34 @@ AUDIT_POINTS = 131072   # that guard's frame: PipelineCfg().data.max_points
 # the pillar configuration's shapes at the shipped grid (1408 x 768 x 40)
 PILLAR_IMAGE = (768, 1408, 49)
 PILLAR_BEV = (96, 176, 128)
+
+
+# phase 22: every BEV-net option of the schema on the shipped configs,
+# (name, odom overrides, train-verb steps, evaluate-verb windows)
+OPTION_RUNS = (
+    ("options", dict(bn_type="semiglobal_sync_bn", conv_type="sparse_conv",
+                     use_se=True, use_sa=True, conf_type="linear",
+                     multi_level_odom=True, use_svd=True), 4, 8),
+    ("fire", dict(block_type="fire"), 2, 0),
+    ("bottleneck", dict(block_type="bottleneck"), 2, 0),
+    ("fc", dict(dense_predict=False), 2, 8),
+)
+OPTIONS_DIR = os.path.join(REPO, "build", "smoke_options")
+OPTION_PAIR_HW = (96, 176)       # the shipped BEV, one pair of 2 x 128
+# the BEV nets card vs CPU in f32, element by element: |card - cpu| <=
+# BEV_CPU_TOL * (|cpu| + min(1, max |cpu|)), the f32 rtol/atol of
+# tests/test_torch_bev_options.py with the atol scaled down for a tensor
+# whose values are all small (a softmax confidence over 96 x 176 cells
+# holds ~6e-5)
+BEV_CPU_TOL = 1e-5
+# DenseMiddleCov card vs CPU, f32, train mode, at a small grid: 20 conv3d
+# layers of up to 27 x 64-term sums in other orders, and their
+# gradients; max |card - cpu| <= DENSE_CPU_TOL * max |cpu| per tensor
+DENSE_GRID_SMALL = (41, 128, 128)
+DENSE_CPU_TOL = 1e-4
+# ... except the biases of the convs that a train-mode BN follows, whose
+# exact gradient is 0 (tests/test_torch_middle_dense.py's f32 ZERO)
+DENSE_ZERO_GRAD = 1e-5
 
 
 def fail(msg):
@@ -738,7 +788,7 @@ class StepRecorder:
         self.loop.train_step = self.step
 
 
-def predicted_launches(ops, cfg, warmup, grad_ops=None):
+def predicted_launches(ops, cfg, warmup, grad_ops=None, levels=1):
     """Kernel launches of one train step, from the ops of one frame's
     convs: a conv through a raw rulebook runs ``gather_matmul`` forward
     and ``row_gather`` for its d_W; a band plan runs ``band_matmul``
@@ -749,7 +799,8 @@ def predicted_launches(ops, cfg, warmup, grad_ops=None):
     ``gather_matmul_dgrad``.  Only the first ``grad_ops`` convs (all by
     default) run a backward: the ones the loss reaches.  Each frame of
     the window repeats that; each ICP round runs one ``nn_search`` for
-    all pairs."""
+    all pairs, once per consistency level (``levels``: 3 under
+    ``multi_level_odom`` at the shipped decoder)."""
     want = dict.fromkeys(("gather_matmul", "gather_matmul_dgrad",
                           "row_gather", "band_matmul", "band_matmul_dgrad",
                           "band_gather"), 0)
@@ -762,8 +813,8 @@ def predicted_launches(ops, cfg, warmup, grad_ops=None):
         want["band_gather" if st else "row_gather"] += L
         if i > 0:
             want["band_matmul_dgrad" if st else "gather_matmul_dgrad"] += L
-    want["nn_search"] = (cfg.loss.warmup_icp_iter if warmup
-                         else cfg.loss.icp_iter)
+    want["nn_search"] = levels * (cfg.loss.warmup_icp_iter if warmup
+                                  else cfg.loss.icp_iter)
     return want
 
 
@@ -2231,6 +2282,329 @@ def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
             "world_loop_launches": total}
 
 
+def option_levels(odom):
+    """The consistency loop's levels a step: one per pyramid level under
+    ``multi_level_odom`` (the deep-supervision levels and the main
+    one), else one."""
+    if not (odom.multi_level_odom and odom.dense_predict):
+        return 1
+    return (len(odom.upsample_strides) if odom.use_deep_supervision
+            else 1)
+
+
+def option_configs(PipelineCfg, overrides, train_config=TRAIN_CONFIG,
+                   eval_config=CONFIG):
+    """(train, eval) configs of one phase-22 run: the shipped configs
+    with the ``odom`` overrides; for training ``loss.warmup_steps`` 1
+    and ``train.display_step`` 1, and the FC head at dropout 0 (the
+    schema's 0.1 has no rng in train mode, in JAX too)."""
+    with open(train_config) as fh:
+        tcfg = PipelineCfg.from_json(fh.read())
+    with open(eval_config) as fh:
+        ecfg = PipelineCfg.from_json(fh.read())
+    t_odom = dict(overrides, **({"dropout": 0.0}
+                                if overrides.get("dense_predict") is False
+                                else {}))
+    tcfg = tcfg.replace(
+        odom=dataclasses.replace(tcfg.odom, **t_odom),
+        loss=dataclasses.replace(tcfg.loss,
+                                 warmup_steps=SMOKE_WARMUP_STEPS),
+        train=dataclasses.replace(tcfg.train, display_step=1))
+    ecfg = ecfg.replace(odom=dataclasses.replace(ecfg.odom, **overrides))
+    return tcfg, ecfg
+
+
+def option_phases(rb_ops, frames, cli, Trainer, counted, reset_counts,
+                  counts, evaluate, dev, smi_line, np, torch,
+                  runs=OPTION_RUNS, train_config=TRAIN_CONFIG,
+                  eval_config=CONFIG, pair_hw=OPTION_PAIR_HW,
+                  dense_grids=None):
+    """Phase 22: every BEV-net option of the schema and DenseMiddleCov.
+    Each of ``runs`` (name, odom overrides, train steps, eval windows)
+    trains through the CLI's train verb at ``option_configs``' train
+    config (each step's launches against ``predicted_launches``, B3
+    once a level), times a post-warmup step (peak memory), evaluates
+    its checkpoint through the evaluate verb (``evaluate(name,
+    model_dir, kernel, cfg)``, phase 14's checks) where it has eval
+    windows, and streams the scans from it at the eval config; the FC
+    head's train step at the schema's dropout raises.  Then each run's
+    BEV net, f32, on one (1, H, W, 256) pair input (``pair_hw``), card
+    against CPU; and DenseMiddleCov at the train config's grid (or
+    ``dense_grids[0]``): one forward and backward on a scan's voxel
+    features, then card against CPU in f32 at a small grid
+    (``dense_grids[1]``).  Returns each path's launches by kernel."""
+    from rslo_tpu_torch.config.schema import PipelineCfg, grid_size
+    from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
+    from rslo_tpu_torch.eval.streaming import StreamingOdometry
+    from rslo_tpu_torch.geometry import np_compose_pose
+    from rslo_tpu_torch.models.bev_net import DropoutRngError
+    from rslo_tpu_torch.models.middle_dense import DenseMiddleCov
+    from rslo_tpu_torch.models.net import OdomNet
+    from rslo_tpu_torch.train import loop as train_loop
+    from rslo_tpu_torch.train.step import train_step
+    shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
+    os.makedirs(OPTIONS_DIR)
+    launches = {}
+    bev_nets = []
+    for name, overrides, n_steps, windows in runs:
+        tcfg, ecfg = option_configs(PipelineCfg, overrides, train_config,
+                                    eval_config)
+        run_dir = os.path.join(OPTIONS_DIR, name)
+        cfg_path = os.path.join(OPTIONS_DIR, f"{name}_train.json")
+        with open(cfg_path, "w") as fh:
+            fh.write(tcfg.to_json())
+        levels = option_levels(tcfg.odom)
+        # -- 22a. the train verb ------------------------------------------
+        reset_counts()
+        t0 = time.perf_counter()
+        with StepRecorder(train_loop, counts, torch) as rec:
+            state = cli.main(["train", "--config", cfg_path, "--model_dir",
+                              run_dir, "--synthetic", "--steps",
+                              str(n_steps)])
+        torch.cuda.synchronize()
+        verb_s = time.perf_counter() - t0
+        launches[f"{name}_train_launches"] = total = counts()
+        if state.step != n_steps or len(rec.records) != n_steps:
+            fail(f"{name}: the train verb ended at {state.step}, "
+                 f"{len(rec.records)} steps recorded")
+        for k, (warm, got, ms) in enumerate(rec.records):
+            want = predicted_launches(rb_ops, tcfg, warm, levels=levels)
+            say(f"[{name} train] step {k} "
+                f"({'warmup' if warm else 'post-warmup'}): {ms:.3f} ms "
+                f"(host clock, synchronized), launches {got}")
+            if warm != (k <= tcfg.loss.warmup_steps) or got != want:
+                fail(f"{name} train step {k}: launches {got}, predicted "
+                     f"{want} ({levels} consistency levels)")
+        if {k: sum(c[k] for _, c, _ in rec.records) for k in counted} != \
+                total:
+            fail(f"{name} train verb: launches outside the steps: {total}")
+        # a post-warmup step at the trained weights: time, peak memory
+        tr = Trainer(tcfg, run_dir, dev)
+        st = tr.init_state()
+        torch.cuda.synchronize()
+        live_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+        torch.cuda.reset_peak_memory_stats(dev)
+        train_step(st, rec.batch, tcfg, tr.optimizer, warmup=False)
+        step_ms = median_ms(lambda: train_step(
+            st, rec.batch, tcfg, tr.optimizer, warmup=False), 3, torch)
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+        say(f"[time] {name} train step, full width, 3 frames, post-warmup: "
+            f"{step_ms:.3f} ms (median of 3 after one warm-up step, host "
+            f"clock); peak device memory {peak:.1f} MiB "
+            f"({peak - live_mib:.1f} MiB above the {live_mib:.1f} live); "
+            f"the verb's {n_steps} steps in {verb_s:.2f} s; {smi_line}")
+        tr.logger.close()
+        del tr, st
+        if overrides.get("dense_predict") is False:
+            # the FC head at the schema's dropout in train mode: no rng
+            dcfg = tcfg.replace(odom=dataclasses.replace(
+                tcfg.odom, dropout=ecfg.odom.dropout))
+            tr = Trainer(dcfg, run_dir, dev)
+            st = tr.init_state()
+            try:
+                train_step(st, rec.batch, dcfg, tr.optimizer, warmup=False)
+            except DropoutRngError as e:
+                say(f"[{name}] a train step at dropout "
+                    f"{dcfg.odom.dropout} raises, as in JAX: {e}")
+            else:
+                fail(f"{name}: a train step at dropout "
+                     f"{dcfg.odom.dropout} ran")
+            finally:
+                tr.logger.close()
+            del tr, st
+        # -- 22b. the evaluate verb -----------------------------------------
+        if windows:
+            launches[f"{name}_eval_launches"] = evaluate(
+                name, run_dir, "gather_matmul", ecfg)
+        # -- 22c. streaming from the checkpoint ---------------------------
+        tr = Trainer(ecfg, run_dir, dev)
+        net = tr.init_state().model.eval()
+        tr.logger.close()
+        stream = StreamingOdometry(net, ecfg, dev)
+        reset_counts()
+        for scan in frames:
+            stream.push(scan)
+        torch.cuda.synchronize()
+        launches[f"{name}_stream_launches"] = got = counts()
+        poses = np.stack(stream.trajectory)
+        want = dict.fromkeys(counted, 0)
+        want["gather_matmul"] = ENCODER_CONVS * len(frames)
+        say(f"[{name} stream] {len(frames)} scans, launches {got}; last "
+            f"pose {np.array2string(poses[-1], precision=5)}")
+        if got != want:
+            fail(f"{name} stream: launches {got} != {want}")
+        if poses.shape != (len(frames), 7) or not np.isfinite(poses).all():
+            fail(f"{name} stream: bad trajectory {poses.shape}: {poses}")
+        pts = torch.as_tensor(np.stack(frames[:2]), device=dev)
+        ex = prepare_example(pts, torch.ones(pts.shape[:2], dtype=bool,
+                                             device=dev),
+                             voxelizer_config(ecfg), mean_mode=True)
+        with torch.no_grad():
+            two = net(ex)["odometry"][0].cpu().numpy()
+        expect = np_compose_pose(poses[0][None], two[None])[0]
+        say(f"[{name} stream] pose after scan 2 "
+            f"{np.array2string(poses[1], precision=6)} vs two-frame forward "
+            f"{np.array2string(expect, precision=6)}; max |diff| "
+            f"{np.abs(poses[1] - expect).max():.3e}")
+        if not np.allclose(poses[1], expect, **POSE_TOL):
+            fail(f"{name} stream: pose after scan 2 != two-frame forward")
+        stream = StreamingOdometry(net, ecfg, dev)
+        for scan in frames[:3]:                     # warm-up
+            stream.push(scan)
+        scans = iter(frames * 3)
+        stream_ms = median_ms(lambda: stream.push(next(scans)), 10, torch)
+        say(f"[time] {name} streaming {stream_ms:.3f} ms/scan "
+            f"({1e3 / stream_ms:.2f} scans/s), median of 10 after warm-up; "
+            f"{smi_line}")
+        bev_nets.append((name, ecfg))
+        del net, stream
+        shutil.rmtree(run_dir, ignore_errors=True)
+
+    # -- 22d. each variant's BEV net, f32, card against CPU -----------------
+    rng = np.random.default_rng(SEED)
+    for name, ecfg in bev_nets:
+        cfg32 = ecfg.replace(odom=dataclasses.replace(ecfg.odom,
+                                                      compute_dtype="fp32"))
+        gen = torch.Generator().manual_seed(SEED)
+        bev = OdomNet(cfg32, gen).bev_net
+        randomize_bn(bev, gen)
+        x = rng.normal(size=(1,) + tuple(pair_hw) +
+                       (2 * cfg32.odom.num_input_features,))
+        x[:, rng.random(tuple(pair_hw)) < 0.4] = 0.0
+        x = torch.as_tensor(x.astype(np.float32))
+        with torch.no_grad():
+            cpu_out = bev.eval()(x)
+            card_out = bev.to(dev)(x.to(dev))
+        pairs = [(k, card_out[k], cpu_out[k]) for k in
+                 ("odometry", "tq_map", "t_conf", "q_conf")]
+        pairs += [(f"pyramid[{i}].{part}", a[j], b[j])
+                  for i, (a, b) in enumerate(zip(card_out["pyramid"],
+                                                 cpu_out["pyramid"]))
+                  for j, part in enumerate(("map", "mask"))]
+        pairs += [(f"odometry_levels[{i}]", a, b) for i, (a, b) in enumerate(
+            zip(card_out.get("odometry_levels", []),
+                cpu_out.get("odometry_levels", [])))]
+        worst = []
+        for key, a, b in pairs:
+            a, b = a.cpu().numpy(), b.numpy()
+            if a.shape != b.shape:
+                fail(f"{name}: the f32 BEV net's {key} has the shape "
+                     f"{a.shape} on the card, {b.shape} on the CPU")
+            err, top = np.abs(a - b), np.abs(b).max()
+            worst.append(f"{key} {err.max():.2e} (max |cpu| {top:.2e})")
+            if not (err <= BEV_CPU_TOL * (np.abs(b) + min(1.0, top))).all():
+                fail(f"{name}: the f32 BEV net's {key} on the card != the "
+                     f"CPU's (max |diff| {err.max():.3e}, max |cpu| "
+                     f"{top:.3e}, tolerance {BEV_CPU_TOL} * (|cpu| + "
+                     f"min(1, max |cpu|)))")
+        say(f"[cpu-ref] {name} BEV net, f32, one {tuple(x.shape)} pair: "
+            f"card vs CPU within {BEV_CPU_TOL} * (|cpu| + min(1, max "
+            f"|cpu|)); max |diff| " + ", ".join(worst))
+        del bev
+
+    # -- 22e. DenseMiddleCov: the shipped grid on the card; card vs CPU ------
+    tcfg, _ = option_configs(PipelineCfg, {}, train_config, eval_config)
+    nx, ny, nz = grid_size(tcfg.voxelizer)
+    full, small = dense_grids or ((nz + 1, ny, nx), DENSE_GRID_SMALL)
+    ex = prepare_example(torch.as_tensor(frames[0][None], device=dev),
+                         torch.ones((1, len(frames[0])), dtype=bool,
+                                    device=dev),
+                         voxelizer_config(tcfg), mean_mode=True)
+    fargs = (ex["voxel_features"][0], ex["coords"][0], ex["voxel_mask"][0])
+    dense = DenseMiddleCov(tcfg.middle, full)
+    dense.reset_parameters(torch.Generator().manual_seed(SEED))
+    dense = dense.to(dev).train()
+
+    def fwd_bwd():
+        bev, cov = dense(*fargs)
+        loss = bev.square().mean() + cov.square().mean()
+        loss.backward()
+        return bev, cov, loss
+
+    torch.cuda.synchronize()
+    live_mib = torch.cuda.memory_allocated(dev) / 2 ** 20
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    bev, cov, loss = fwd_bwd()                              # warm-up
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    if any(counts().values()):
+        fail(f"DenseMiddleCov launched a kernel of B1-B5: {counts()}")
+    grads_ok = all(torch.isfinite(p.grad).all() for p in dense.parameters())
+    n_vox = int(fargs[2].sum())
+    if not (torch.isfinite(bev).all() and torch.isfinite(cov).all() and
+            grads_ok and math.isfinite(float(loss.detach()))):
+        fail("DenseMiddleCov: non-finite output or gradient at the "
+             "shipped grid")
+    train_ms = event_us(fwd_bwd, 3, torch) / 1e3
+    with torch.no_grad():
+        dense.eval()
+        eval_ms = event_us(lambda: dense(*fargs), 3, torch) / 1e3
+    say(f"[dense middle] DenseMiddleCov at the grid {full} (nz+1, ny, nx), "
+        f"channels {tuple(tcfg.middle.channels)}, {n_vox} voxels of one "
+        f"scan: BEV {tuple(bev.shape)}, cov {tuple(cov.shape)}; finite "
+        f"outputs and gradients; forward + backward {train_ms:.3f} ms, "
+        f"eval forward {eval_ms:.3f} ms (CUDA events, each the mean of 3 "
+        f"calls after 3 warm-up calls); "
+        f"peak device memory {peak:.1f} MiB ({peak - live_mib:.1f} above "
+        f"the {live_mib:.1f} live); no kernel of B1-B5 (cuDNN conv3d); "
+        f"{smi_line}")
+    del dense, bev, cov, loss
+    torch.cuda.empty_cache()
+    # the scan's voxels in a window of the small grid's size around the
+    # sensor (the middle of the full grid), moved to the window's origin
+    origin = torch.tensor([0, (full[1] - small[1]) // 2,
+                           (full[2] - small[2]) // 2], device=dev)
+    rel = fargs[1] - origin
+    keep = fargs[2] & (rel[:, 1] >= 0) & (rel[:, 1] < small[1]) & \
+        (rel[:, 2] >= 0) & (rel[:, 2] < small[2])
+    sargs = (fargs[0][keep], rel[keep].to(fargs[1].dtype), fargs[2][keep])
+    if not int(keep.sum()):
+        fail(f"DenseMiddleCov: no voxel of the scan in the {small} window")
+    outs = {}
+    for where in (torch.device("cpu"), dev):
+        small_net = DenseMiddleCov(tcfg.middle, small, torch.float32)
+        small_net.reset_parameters(torch.Generator().manual_seed(SEED))
+        randomize_bn(small_net, torch.Generator().manual_seed(SEED))
+        small_net = small_net.to(where).train()
+        bev, cov = small_net(*(a.to(where) for a in sargs))
+        (bev.square().mean() + cov.square().mean()).backward()
+        outs[where.type] = {"bev": bev.detach(), "cov": cov.detach(), **{
+            n: p.grad for n, p in small_net.named_parameters()}}
+    # the bias of a conv that a train-mode BN follows has a zero gradient
+    # in exact arithmetic: on each side it is f32 noise, held below
+    # DENSE_ZERO_GRAD of the largest gradient of all
+    layers = [n for n, _ in small_net.named_children()]
+    bn_fed = {f"{a}.bias" for a, b in zip(layers, layers[1:])
+              if b.startswith("DenseMaskedBN")}
+    top = max(float(g.abs().max()) for k, g in outs["cpu"].items()
+              if k not in ("bev", "cov"))
+    worst = zero = 0.0
+    for key, b in outs["cpu"].items():
+        a = outs[dev.type][key].cpu()
+        if key in bn_fed:
+            zero = max(zero, float(a.abs().max()), float(b.abs().max()))
+            continue
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        worst = max(worst, err / max(scale, 1e-30))
+        if not err <= DENSE_CPU_TOL * scale:
+            fail(f"DenseMiddleCov f32 at {small}: {key} card vs CPU max "
+                 f"|diff| {err:.3e} > {DENSE_CPU_TOL} * {scale:.3e}")
+    if not zero <= DENSE_ZERO_GRAD * top:
+        fail(f"DenseMiddleCov f32 at {small}: a BN-fed conv bias has a "
+             f"gradient of {zero:.3e} (> {DENSE_ZERO_GRAD} * {top:.3e})")
+    say(f"[cpu-ref] DenseMiddleCov f32 at the grid {small}, "
+        f"{int(sargs[2].sum())} voxels, train mode: BEV, cov and "
+        f"{len(outs['cpu']) - 2 - len(bn_fed)} gradients card vs CPU, the "
+        f"worst max |diff| / max |cpu| {worst:.3e} (<= {DENSE_CPU_TOL}); "
+        f"the {len(bn_fed)} BN-fed conv biases' gradients at most "
+        f"{zero:.3e} on either side, {zero / top:.2e} of the largest "
+        f"gradient (<= {DENSE_ZERO_GRAD})")
+    shutil.rmtree(OPTIONS_DIR, ignore_errors=True)
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose kernels are timed "
@@ -3429,6 +3803,15 @@ def main():
                                   reset_counts, counts, dev, smi_line, np,
                                   torch))
 
+    # -- 22. every BEV-net option of the schema; DenseMiddleCov ------------
+    more.update(option_phases(
+        rb_ops, frames, cli, Trainer, counted, reset_counts, counts,
+        lambda name, model_dir, kernel, cfg_: evaluate_and_check(
+            name, model_dir, kernel, cfg_, cli, Trainer, counted,
+            reset_counts, counts, prepare_example, voxelizer_config(cfg_),
+            dev, smi_line, np, torch),
+        dev, smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -3449,7 +3832,8 @@ def main():
                      # refined evaluate verb with each flag, loop
                      # closing on phase 20's circuit, the hier-cloud and
                      # cross-normal training and loop closing on the
-                     # rendered loop
+                     # rendered loop; phase 22's train verb, evaluate verb
+                     # and streaming of each BEV-net option run
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

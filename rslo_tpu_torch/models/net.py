@@ -28,6 +28,7 @@ from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
                      build_band_geometry, build_geometry)
 from .middle_pillar import PillarMiddleCov
+from .semiglobal_bn import SemiGlobalSyncBN
 from .vfe import VFES
 
 
@@ -61,8 +62,12 @@ class OdomNet(nn.Module):
         elif cfg.middle.name == "SparseMiddleCov":
             self.middle = SparseMiddleCov(cfg.middle)
         else:
+            # JAX's OdomNet builds no other middle either (it maps every
+            # other name to the sparse one); models/middle_dense.py's
+            # DenseMiddleCov is reached on its own
             raise NotImplementedError(
-                f"middle {cfg.middle.name!r} is not ported yet")
+                f"middle {cfg.middle.name!r}: OdomNet builds "
+                f"'SparseMiddleCov' or 'PillarMiddleCov'")
         self.bev_net = BEVOdomNet(cfg.odom,
                                   cfg.voxelizer.point_cloud_range)
         self.reset_parameters(generator)
@@ -101,9 +106,15 @@ class OdomNet(nn.Module):
                 mod.bias.zero_()
                 mod.mean.zero_()
                 mod.var.fill_(1.0)
-        # the BEV net's own 1x1 convs are the 7-channel tq heads
-        for name, mod in self.bev_net.named_children():
-            if name.startswith("Conv_"):
+            elif isinstance(mod, SemiGlobalSyncBN):
+                mod.scale.fill_(1.0)
+                mod.bias.zero_()
+                mod.reset_statistics()
+        # the BEV net's own layers with a 7-wide bias are its pose heads:
+        # the 1x1 tq convs, or the FC head's last dense layer
+        for mod in self.bev_net.children():
+            bias = getattr(mod, "bias", None)
+            if bias is not None and bias.shape == (7,):
                 mod.bias.copy_(identity_pose_bias())
 
     def _middle_geometry(self, coords, vmask, with_cov: bool = True):
@@ -134,6 +145,7 @@ class OdomNet(nn.Module):
         ``normal_gt`` (list[L] of (V, 3)) from the cross-normal VFE;
         ``with_cov=False`` skips the covariance decoder and leaves
         ``voxel_covs`` out."""
+        self.bev_net.check_train_mode()
         coords = example["coords"]
         vmask = example["voxel_mask"]
         L = coords.shape[0]

@@ -318,6 +318,95 @@ def test_hier_points_step_matches_jax(monkeypatch):
     assert zero > 0          # the covariance decoder gets no gradient
 
 
+# BEV-net variants through the whole step (step_cfg's middle and loss):
+# (a) every option at once (its semi-global BN normalizes with running
+# statistics, so it stays well-conditioned in train mode; two blocks a
+# stage place the attention), (b) fire and (c) bottleneck blocks, (d)
+# the FC head at dropout 0 (JAX's train step passes no dropout rng)
+STEP_VARIANTS = {
+    "a_all_options": dict(bn_type="semiglobal_sync_bn",
+                          conv_type="sparse_conv", use_se=True, use_sa=True,
+                          conf_type="linear", multi_level_odom=True,
+                          use_svd=True, layer_nums=(2, 2, 2)),
+    "b_fire": dict(block_type="fire"),
+    "c_bottleneck": dict(block_type="bottleneck"),
+    "d_fc_head": dict(dense_predict=False, dropout=0.0),
+}
+
+
+@pytest.mark.parametrize("variant", list(STEP_VARIANTS))
+def test_bev_variant_step_matches_jax(variant, monkeypatch):
+    """One f32 post-warmup step of each variant: loss terms, per-leaf
+    gradients and the new statistics (the middle's BN and all eight of
+    every semi-global BN).  Variant (a) emits three per-level votes,
+    each with its own consistency term."""
+    cfg = step_cfg()
+    cfg = cfg.replace(odom=dataclasses.replace(cfg.odom,
+                                               **STEP_VARIANTS[variant]))
+    batch = _batch(cfg)
+    jnet = JaxOdomNet(cfg)
+    ex = jax_prepare(jnp.asarray(batch["points"]),
+                     jnp.asarray(batch["point_mask"]), jax_vcfg(cfg),
+                     mean_mode=True)
+    ex["odometry"] = jnp.asarray(batch["odometry"])
+    variables = jax_variables(jnet, 2, ex, train=False)
+    alphas = {"rot": jnp.float32(-2.5), "trans": jnp.float32(0.0)}
+
+    def loss_fn(params):
+        preds, mut = jnet.apply(
+            {"params": params, "batch_stats": variables["batch_stats"]},
+            ex, train=True, mutable=["batch_stats"])
+        out = jax_objective(preds, ex, alphas, cfg.loss,
+                            cfg.voxelizer.point_cloud_range, warmup=False)
+        n_lvl = len(preds.get("odometry_levels", [None]))
+        return out.total, (out.aux, mut["batch_stats"], n_lvl)
+    monkeypatch.setattr(jax_consistency, "nn_search", pallas_nn_search)
+    (_, (ref_aux, ref_stats, n_lvl)), ref_grads = jax.jit(
+        jax.value_and_grad(loss_fn, has_aux=True))(
+            to_jax(variables["params"]))
+    assert int(n_lvl) == (3 if variant.startswith("a_") else 1)
+
+    pcfg = to_port(cfg)
+    net = load_flax_variables(OdomNet(pcfg), variables)
+    state = TrainState.create(net, make_optimizer(pcfg, net),
+                              {"rot": -2.5, "trans": 0.0})
+    out, grads = loss_and_grads(state, {k: tt(v) for k, v in batch.items()},
+                                pcfg, warmup=False)
+    assert set(out.aux) == set(ref_aux)
+    for key, val in ref_aux.items():
+        tol = dict(LOSS_TOL)
+        if key == "q_err_deg":
+            # 2 arccos(dq) near dq = 1 turns one f32 ulp of dq (2^-24)
+            # into 2^-23 / sin(angle / 2) radians; the SVD vote's last
+            # bits differ between the frameworks: allow 2 such ulps
+            tol["atol"] = np.degrees(2 * 2.0 ** -23 /
+                                     np.sin(np.radians(float(val)) / 2))
+        np.testing.assert_allclose(float(out.aux[key]), val, err_msg=key,
+                                   **tol)
+    assert float(ref_aux["consistency_loss"]) > 0
+    top = max(float(np.abs(g).max()) for _, g in _flat(ref_grads))
+    seen = set()
+    for name, g in grads.items():
+        if name.startswith("alphas."):
+            continue
+        path = flax_path(name, g.dim())[1]
+        seen.add(path)
+        want = _get(ref_grads, path)
+        err = float(np.abs(to_flax_leaf(name, g) - want).max())
+        assert err <= _grad_bound(want, top), (name, err)
+    assert seen == {p for p, _ in _flat(ref_grads)}
+    n_sg = 0
+    for name, b in net.named_buffers():
+        col, path = flax_path(name, b.dim())
+        assert col == "batch_stats"
+        np.testing.assert_allclose(np_(b), _get(ref_stats, path),
+                                   err_msg=name, **STAT_TOL)
+        n_sg += "SemiGlobalSyncBN_0" in path
+    assert len(dict(net.named_buffers())) == len(list(_flat(ref_stats)))
+    if variant.startswith("a_"):
+        assert n_sg > 0 and n_sg % 8 == 0
+
+
 def test_bev_net_train_mode_matches_jax():
     """Train-mode Norm (statistics over N*H*W, biased variance, running
     statistics 0.99 * old + 0.01 * batch) through the whole BEV net at
