@@ -17,9 +17,10 @@ config warm-started from it; the refined evaluation (pose-graph
 fusion, bundle adjustment, loop closing) through the evaluate verb, and
 each refinement solver on the card against the CPU; last, the data
 build from a rendered world with the hier-cloud and cross-normal
-training it feeds and loop closing on a true revisit; and every BEV-net
-option of the schema, with DenseMiddleCov.  Phases (each one exits
-non-zero when it fails):
+training it feeds and loop closing on a true revisit; every BEV-net
+option of the schema, with DenseMiddleCov; and data-parallel training
+and evaluation: the train verb on an NCCL group, and two ranks sharing
+the card over gloo.  Phases (each one exits non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -179,6 +180,25 @@ non-zero when it fails):
      forward and backward on a scan's voxel features (finite, peak
      memory, device ms, no B1-B5 launch), and card against CPU in f32 at
      a 41 x 128 x 128 grid (the scan's voxels around the sensor)
+ 23. data-parallel training and evaluation (``data_parallel_phases``):
+     (a) the train verb at phase 10's config under torchrun's
+     environment at world size 1, so on an NCCL group, fed phase 10's
+     batches: each step's loss and ``grad_norm`` against phase 10's
+     within ``TRAIN_LOSS_TOL``, its launches against
+     ``predicted_launches``, the parameters after 2 steps against a
+     one-card ``Trainer.fit`` (``param_gap``); (b) two ranks on the one
+     card over gloo (NCCL takes one rank a card), started after the
+     build and loading it (``dp_rank``): 2 ``Trainer.fit`` steps at full
+     width, a window of phase 10's a rank a step (finite losses,
+     parameters and BN buffers bit-equal across the ranks after each
+     step, each rank's launches a step those of (a)), ``run_eval`` on
+     16 windows (each window's odometry against the one-card run of
+     rank 0's checkpoint), ``fuse_windows_sharded`` on 1105 poses (23
+     windows of 64) and ``solve_ba_sharded`` on 4096 landmarks against
+     their one-process runs; (c) the same ranks at the CPU tests' tiny
+     config, 2 data-parallel steps on the card against the same on the
+     CPU; each path's ms a step per rank and peak memory (the gloo
+     numbers host-staged)
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -200,7 +220,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-22 beside them) and the result (JSON); the card's
+of phases 14-23 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -367,6 +387,28 @@ DENSE_CPU_TOL = 1e-4
 # ... except the biases of the convs that a train-mode BN follows, whose
 # exact gradient is 0 (tests/test_torch_middle_dense.py's f32 ZERO)
 DENSE_ZERO_GRAD = 1e-5
+
+
+# phase 23: data-parallel training and evaluation over DP_RANKS ranks on
+# the one card (gloo; NCCL takes one rank a card) and the NCCL verb at
+# world size 1: DP_STEPS train steps, DP_EVAL_WINDOWS eval windows; the
+# sharded pose graph at a KITTI val sequence's 23 windows of 64 poses;
+# the sharded BA at the refined eval's 4096 landmarks a window
+DP_DIR = os.path.join(REPO, "build", "smoke_dp")
+DP_RANKS, DP_STEPS, DP_EVAL_WINDOWS = 2, 2, 16
+DP_TIMEOUT_S = 600
+DP_FUSE = dict(window=64, overlap=16, iters=8)
+DP_FUSE_POSES = 1 + 23 * 48
+DP_BA_POSES, DP_BA_LANDMARKS, DP_BA_ITERS = 6, 4096, 5
+# two runs' parameters after DP_STEPS Adam steps: most entries within
+# this (tests/test_torch_train_step.py's PARAM_ATOL; see ``param_gap``)
+DP_PARAM_ATOL = 1e-5
+# the sharded fusion against one process: a rank's batch of half the
+# windows rounds other than the whole batch, and the stitch composes 23
+# windows' f32 solutions along a ~100 m trajectory
+DP_FUSE_TOL = dict(rtol=1e-4, atol=1e-4)
+DP_FUSE_Q_TOL = 1e-4
+DP_LM_TOL = 1e-4            # tests/test_torch_ba.py's landmark tolerance
 
 
 def fail(msg):
@@ -2605,6 +2647,679 @@ def option_phases(rb_ops, frames, cli, Trainer, counted, reset_counts,
     return launches
 
 
+# -- phase 23: data-parallel training and evaluation ------------------------
+
+def free_port():
+    """A free TCP port on this host for a rendezvous on localhost."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def tiny_config(PipelineCfg):
+    """tests/test_model.py's tiny config in float32 with ``sync_bn`` in
+    the sparse middle's encoder and no BN in the BEV net, weight decay 10
+    and 40 steps: tests/test_torch_dp_train.py's ``dp_cfg`` (which holds
+    this against it), in the port's schema."""
+    cfg = PipelineCfg()
+    rep = dataclasses.replace
+    return cfg.replace(
+        voxelizer=rep(cfg.voxelizer,
+                      point_cloud_range=(-6.4, -6.4, -0.8, 6.4, 6.4, 0.8),
+                      voxel_size=(0.1, 0.1, 0.04), max_points_per_voxel=4,
+                      max_voxels=2048),
+        middle=rep(cfg.middle, level_capacities=(2048, 2048, 1024, 512),
+                   channels=(8, 8, 16, 16), bn_type="sync_bn",
+                   conv_dtype="f32"),
+        odom=rep(cfg.odom, num_input_features=32, layer_nums=(1, 1, 1),
+                 num_filters=(16, 16, 32), num_upsample_filters=(16, 16, 16),
+                 bn_type="none", compute_dtype="fp32"),
+        loss=rep(cfg.loss, max_loss_points=2048),
+        optimizer=rep(cfg.optimizer, weight_decay=10.0),
+        train=rep(cfg.train, steps=40))
+
+
+def tiny_batches(np, L=3, n=4000, steps=DP_STEPS, ranks=DP_RANKS):
+    """steps x ranks 3-frame windows at the tiny config's range (the same
+    base cloud shifted a little a frame, as tests/torch_port_helpers.py's
+    ``tiny_scans``), with small pair motions."""
+    out = []
+    for k in range(steps * ranks):
+        rng = np.random.default_rng(40 + k)
+        base = rng.uniform(-6, 6, size=(n, 2)).astype(np.float32)
+        scans = []
+        for t in range(L):
+            scans.append(np.concatenate(
+                [base + t * 0.05, rng.uniform(-0.7, 0.7, (n, 1)),
+                 rng.uniform(0, 1, (n, 1)), rng.normal(size=(n, 3))],
+                axis=1).astype(np.float32))
+        odom = np.zeros((L * (L - 1) // 2, 7), np.float32)
+        odom[:, :3] = rng.normal(0, 0.05, (len(odom), 3))
+        odom[:, 3] = 1.0
+        out.append({"points": np.stack(scans),
+                    "point_mask": np.ones((L, n), bool), "odometry": odom})
+    return out
+
+
+def dp_fuse_inputs(np):
+    """Pair motions of a KITTI val sequence's length (DP_FUSE_POSES
+    poses, 1 m a frame with a slight yaw) from noisy 3-frame windows:
+    (edges, motions, n_poses, weights) for ``fuse_windows_sharded``."""
+    from rslo_tpu_torch.geometry.transforms import (np_calc_vo,
+                                                    np_compose_pose,
+                                                    odom_to_abs_pose)
+    from rslo_tpu_torch.pgo.refine import window_pairs_to_edges
+    n = DP_FUSE_POSES
+    odoms = np.zeros((n, 7), np.float32)
+    odoms[:, 3] = 1.0
+    odoms[1:, 0] = 1.0
+    odoms[1:, 6] = 0.01
+    odoms[1:, 3] = np.sqrt(1 - 0.01 ** 2)
+    gt = odom_to_abs_pose(odoms)
+    rng = np.random.default_rng(SEED + 23)
+    offsets = [(0, 1), (0, 2), (1, 2)]
+    starts = list(range(0, n - 2))
+    preds = np.zeros((len(starts), 3, 7), np.float32)
+    for w, s in enumerate(starts):
+        for p, (i, j) in enumerate(offsets):
+            m = np_calc_vo(gt[s + i][None], gt[s + j][None])[0]
+            m[:3] += rng.normal(0, 0.03, 3)
+            h = rng.normal(0, 0.0015, 3)
+            dq = np.concatenate([[np.sqrt(1 - np.sum(h * h))], h])
+            m = np_compose_pose(m[None], np.concatenate(
+                [[0, 0, 0], dq])[None])[0]
+            preds[w, p] = m
+    E, M, W = window_pairs_to_edges(starts, offsets, preds)
+    return E, M, n, W
+
+
+def dp_ba_problem(np, ranks=DP_RANKS):
+    """A window BA of DP_BA_POSES poses along x and DP_BA_LANDMARKS
+    landmarks, every landmark seen from every pose with 1 cm noise, the
+    poses and landmarks perturbed (tests/test_ba.py's problem at the
+    runner's ba_points), observations grouped by landmark: (the whole
+    problem, each rank's shard with ``obs_lm`` local to it) as numpy
+    fields of ``BAProblem``."""
+    from rslo_tpu_torch.geometry.transforms import (np_compose_pose,
+                                                    np_invert_pose,
+                                                    quat_to_matrix_np)
+    W, K = DP_BA_POSES, DP_BA_LANDMARKS
+    rng = np.random.default_rng(SEED + 24)
+    step = np.array([1.0, 0.02, 0.0, np.cos(0.01), 0, 0, np.sin(0.01)],
+                    np.float32)
+    poses = [np.array([0, 0, 0, 1, 0, 0, 0], np.float32)]
+    for _ in range(W - 1):
+        poses.append(np_compose_pose(poses[-1][None], step[None])[0])
+    gt = np.stack(poses).astype(np.float32)
+    lms = rng.uniform(-5, 10, size=(K, 3)).astype(np.float32)
+    lms[:, 0] += 2.0
+    obs_x = np.zeros((K, W, 3), np.float32)
+    for i in range(W):
+        inv = np_invert_pose(gt[i])
+        obs_x[:, i] = lms @ quat_to_matrix_np(inv[3:]).T + inv[:3]
+    obs_x += rng.normal(0, 0.01, obs_x.shape).astype(np.float32)
+    poses0 = gt.copy()
+    poses0[1:, :3] += rng.normal(0, 0.1, (W - 1, 3))
+    lms0 = (lms + rng.normal(0, 0.1, lms.shape)).astype(np.float32)
+    obs_p = np.tile(np.arange(W, dtype=np.int32), K)          # lm-major
+    obs_l = np.repeat(np.arange(K, dtype=np.int32), W)
+    anchor = np.zeros(W, bool)
+    anchor[0] = True
+    whole = (poses0, lms0, obs_p, obs_l, obs_x.reshape(-1, 3),
+             np.ones(K * W, np.float32), anchor)
+    per = K // ranks
+    shards = []
+    for r in range(ranks):
+        o = slice(r * per * W, (r + 1) * per * W)
+        shards.append((poses0, lms0[r * per:(r + 1) * per], obs_p[o],
+                       obs_l[o] - r * per, whole[4][o], whole[5][o],
+                       anchor))
+    return whole, shards
+
+
+def replicas_equal(tensors, mesh, torch):
+    """True iff every rank holds the same bits in ``tensors`` (the
+    elementwise max and min of their 32-bit words over the ranks
+    agree)."""
+    import torch.distributed as dist
+    words = torch.cat([t.detach().float().reshape(-1).view(torch.int32)
+                       for t in tensors])
+    hi, lo = words.clone(), words.clone()
+    dist.all_reduce(hi, op=dist.ReduceOp.MAX, group=mesh.group)
+    dist.all_reduce(lo, op=dist.ReduceOp.MIN, group=mesh.group)
+    return bool(torch.equal(hi, lo))
+
+
+def param_gap(got, want, lr_sum, np):
+    """Two runs' parameters after Adam steps: (the largest |difference|,
+    the share of entries beyond DP_PARAM_ATOL).  Held as at most 2 x
+    sum(lr) (Adam moves an entry by ~lr a step, so two runs whose
+    gradient differs in sign at an entry part by up to 2 lr a step) and
+    fewer than 2% of the entries beyond DP_PARAM_ATOL
+    (tests/test_torch_train_step.py's rule)."""
+    worst, loose, total = 0.0, 0, 0
+    for k, v in want.items():
+        d = np.abs(np.asarray(got[k], np.float64) - np.asarray(v, np.float64))
+        worst = max(worst, float(d.max()))
+        loose += int(np.sum(d > DP_PARAM_ATOL))
+        total += d.size
+    return (worst, loose / total,
+            worst <= 2 * lr_sum * (1 + 1e-3) and loose < 0.02 * total)
+
+
+def dp_rank(spec_path):
+    """One rank of phase 23b-c, in its own process: joins the gloo group
+    on the card, runs its share and writes its results (see
+    ``data_parallel_phases``)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from rslo_tpu_torch import cli
+    from rslo_tpu_torch.config.schema import PipelineCfg
+    from rslo_tpu_torch.eval.runner import run_eval
+    from rslo_tpu_torch.models.net import OdomNet
+    from rslo_tpu_torch.ops import _build, band_conv as bc
+    from rslo_tpu_torch.ops.chamfer import nn_search
+    from rslo_tpu_torch.ops.dma_gather import (gather_matmul,
+                                               gather_matmul_dgrad,
+                                               row_gather)
+    from rslo_tpu_torch.pgo.ba import BAProblem, solve_ba_sharded
+    from rslo_tpu_torch.pgo.sharded import fuse_windows_sharded
+    from rslo_tpu_torch.train import loop as train_loop
+    from rslo_tpu_torch.train.distributed import (DataMesh, global_data_mesh,
+                                                  initialize_multihost)
+    from rslo_tpu_torch.train.loop import Trainer, make_optimizer
+    from rslo_tpu_torch.train.state import TrainState
+    from rslo_tpu_torch.train.step import train_step
+
+    spec = torch.load(spec_path, weights_only=False)
+    rank, dev = spec["rank"], torch.device(spec["device"])
+    if dev.type != "cuda":      # a rehearsal of this phase on the CPU
+        torch.cuda.synchronize = lambda *a: None
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(4)
+    build = _build.build
+
+    def built_only(name):
+        if not _build.library_path(name).exists():
+            raise RuntimeError(f"rank {rank}: {name} is not built; the "
+                               f"ranks load the parent's build")
+        return build(name)
+
+    _build.build = built_only
+    counted = {"gather_matmul": gather_matmul,
+               "gather_matmul_dgrad": gather_matmul_dgrad,
+               "row_gather": row_gather, "nn_search": nn_search,
+               "band_matmul": bc.band_matmul,
+               "band_matmul_dgrad": bc.band_matmul_dgrad,
+               "band_gather": bc.band_gather}
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    initialize_multihost(spec["rdv"], spec["world"], rank, device=dev,
+                         backend="gloo")
+    mesh = global_data_mesh(dev)
+    out = {"rank": rank}
+    try:
+        # -- 23b. Trainer.fit at full width, each rank its own windows ----
+        tcfg = PipelineCfg.from_json(spec["train_config"])
+        batches = torch.load(spec["batches"], weights_only=False)
+        mine = [batches[s * mesh.size + rank] for s in range(DP_STEPS)]
+        trainer = Trainer(tcfg, spec["model_dir"], mesh=mesh)
+        state = trainer.init_state()
+        equal = []
+
+        class Recorder(StepRecorder):
+            def __call__(self, state_, batch, *args, **kw):
+                res = super().__call__(state_, batch, *args, **kw)
+                equal.append(replicas_equal(
+                    [*state_.model.state_dict().values(),
+                     *state_.alphas.values()], mesh, torch))
+                return res
+
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        before = counts()
+        with Recorder(train_loop, counts, torch) as rec:
+            state = trainer.fit(iter(mine), state, max_steps=DP_STEPS)
+        sync()
+        after = counts()
+        out["fit"] = dict(
+            records=rec.records, equal=equal, history=trainer.history,
+            launches={k: after[k] - before[k] for k in after},
+            peak_mib=(torch.cuda.max_memory_allocated() / 2 ** 20
+                      if dev.type == "cuda" else 0.0))
+        # -- run_eval over the ranks on the synthetic val split -----------
+        ds = cli._synthetic_dataset(tcfg, "val", n_windows=DP_EVAL_WINDOWS)
+        step, preds = trainer.eval_fn(), []
+
+        def recorded(batch):
+            o = step(batch)
+            preds.append(o)
+            return o
+
+        before = counts()
+        res = run_eval(recorded, ds, tcfg, None, mesh=mesh)
+        sync()
+        after = counts()
+        out["eval"] = dict(results=res, preds=[p.cpu().numpy()
+                                               for p in preds],
+                           launches={k: after[k] - before[k]
+                                     for k in after})
+        trainer.logger.close()
+        # -- the sharded pose graph and BA --------------------------------
+        E, M, n, wts = dp_fuse_inputs(np)
+        sync()
+        t0 = time.perf_counter()
+        fused = fuse_windows_sharded(E, M, n, wts, mesh=mesh, **DP_FUSE)
+        sync()
+        out["fuse"] = dict(poses=fused, ms=(time.perf_counter() - t0) * 1e3)
+        _, shards = dp_ba_problem(np)
+        prob = BAProblem(*(torch.as_tensor(a, device=dev)
+                           for a in shards[rank]))
+        sync()
+        t0 = time.perf_counter()
+        poses, lms, cost = solve_ba_sharded(prob, mesh, iters=DP_BA_ITERS)
+        sync()
+        out["ba"] = dict(poses=poses.cpu().numpy(), landmarks=lms.cpu().numpy(),
+                         cost=float(cost),
+                         ms=(time.perf_counter() - t0) * 1e3)
+        # -- 23c. the tiny config: the card, then the CPU, same group -----
+        tiny = tiny_config(PipelineCfg)
+        tb = tiny_batches(np)
+        out["tiny"] = {}
+        for where, m in (("card", mesh),
+                         ("cpu", DataMesh(mesh.group, rank, mesh.size,
+                                          torch.device("cpu")))):
+            net = OdomNet(tiny, torch.Generator().manual_seed(0))
+            net = net.to(m.device).train()
+            opt = make_optimizer(tiny, net)
+            st = TrainState.create(net, opt, {"rot": -2.5, "trans": 0.0})
+            steps = []
+            for s in range(DP_STEPS):
+                b = {k: torch.as_tensor(v, device=m.device)
+                     for k, v in tb[s * mesh.size + rank].items()}
+                st, metrics = train_step(st, b, tiny, opt, warmup=False,
+                                         mesh=m)
+                steps.append(dict(
+                    metrics={k: float(v) for k, v in metrics.items()},
+                    equal=replicas_equal(
+                        [*st.model.state_dict().values(),
+                         *st.alphas.values()], m, torch)))
+            steps[-1]["params"] = {k: v.detach().cpu().numpy()
+                                   for k, v in st.trainable().items()}
+            out["tiny"][where] = steps
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, spec["out"])
+
+
+def run_dp_ranks(specs, torch):
+    """Start one process a spec (``dp_rank``), wait for all (DP_TIMEOUT_S)
+    and return their results; a rank that fails or hangs fails the run,
+    and every rank is stopped first."""
+    procs = []
+    for spec in specs:
+        path = spec["out"] + ".spec"
+        torch.save(spec, path)
+        code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
+                "chip_smoke.dp_rank(%r)" % (REPO, path))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
+    except subprocess.TimeoutExpired:
+        fail(f"phase 23: the ranks did not finish within {DP_TIMEOUT_S} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log, spec in zip(procs, logs, specs):
+        if p.returncode != 0:
+            fail(f"phase 23: rank {spec['rank']} exited {p.returncode}:\n"
+                 f"{log[-4000:]}")
+    return [torch.load(s["out"], weights_only=False) for s in specs]
+
+
+def data_parallel_phases(tcfg, batches, history, rb_ops, cli, Trainer,
+                         counted, reset_counts, counts, dev, smi_line, np,
+                         torch, backend="nccl"):
+    """Phase 23: data-parallel training and evaluation
+    (``train/distributed.py``), on the one card.  (a) The train verb at
+    ``tcfg`` (phase 10's config) under torchrun's environment at world
+    size 1, so on a ``backend`` (NCCL) group, fed phase 10's batches:
+    each step's loss and ``grad_norm`` against phase 10's, its launches
+    against ``predicted_launches``, and the parameters after
+    DP_STEPS steps against a one-card ``Trainer.fit`` on the same
+    batches; then that trainer's post-warmup step timed with and without
+    the group, in turns.  (b) DP_RANKS ranks on the card over gloo (``dp_rank``):
+    ``Trainer.fit`` for DP_STEPS steps on phase 10's batches, one a
+    rank a step (finite losses, replicas bit-equal after each step, each
+    rank's launches a step those of (a)); ``run_eval`` on
+    DP_EVAL_WINDOWS windows, each window's odometry against the one-card
+    run of rank 0's checkpoint; ``fuse_windows_sharded`` and
+    ``solve_ba_sharded`` against their one-process runs.  (c) The same
+    ranks at ``tiny_config``: DP_STEPS data-parallel steps on the card
+    against the same on the CPU.  Returns the launches of (a) and of
+    rank 0's fit in (b)."""
+    import torch.distributed as dist
+    from rslo_tpu_torch.data import loader as data_loader
+    from rslo_tpu_torch.eval.runner import run_eval
+    from rslo_tpu_torch.pgo.ba import BAProblem, solve_ba_sharded
+    from rslo_tpu_torch.pgo.sharded import fuse_windows_sharded
+    from rslo_tpu_torch.train import loop as train_loop
+    from rslo_tpu_torch.train.distributed import (global_data_mesh,
+                                                  initialize_multihost)
+    from rslo_tpu_torch.train.optim import onecycle_lr
+    from rslo_tpu_torch.train.step import train_step
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    os.makedirs(DP_DIR)
+    lr = onecycle_lr(tcfg.optimizer, tcfg.train.steps)
+    lr_sum = sum(float(lr(i)) for i in range(DP_STEPS))
+
+    # -- 23a. the train verb on an NCCL group of one rank -------------------
+    cfg_path = os.path.join(DP_DIR, "train_config.json")
+    with open(cfg_path, "w") as fh:
+        fh.write(tcfg.to_json())
+
+    class PhaseTenBatches:
+        """Stands in for ``data.loader.DataLoader`` in the verb: phase
+        10's batches, ``device_batch`` windows a batch."""
+
+        def __init__(self, dataset, cfg, device_batch, total_steps, *,
+                     train=True, seed=0, last_iter=-1, num_workers=None):
+            self.d, self.pos = device_batch, (last_iter + 1) * device_batch
+
+        def __iter__(self):
+            while self.pos + self.d <= len(batches):
+                rows = batches[self.pos:self.pos + self.d]
+                self.pos += self.d
+                b = {k: np.stack([r[k] for r in rows]) for k in rows[0]}
+                yield dict(b, meta=[(-1, ())] * self.d)
+
+        def close(self):
+            pass
+
+    env = dict(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()))
+    saved_env = {k: os.environ.get(k) for k in env}
+    seen, fit, loader_cls = {}, Trainer.fit, data_loader.DataLoader
+
+    def recording_fit(self, *a, **kw):
+        seen["trainer"] = self
+        seen["backend"] = dist.get_backend(self.mesh.group)
+        seen["size"] = self.mesh.size
+        return fit(self, *a, **kw)
+
+    os.environ.update(env)
+    Trainer.fit, data_loader.DataLoader = recording_fit, PhaseTenBatches
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    try:
+        with StepRecorder(train_loop, counts, torch) as rec:
+            vstate = cli.main(["train", "--config", cfg_path, "--model_dir",
+                               os.path.join(DP_DIR, "nccl"), "--synthetic",
+                               "--steps", str(tcfg.train.steps),
+                               "--leg_until", str(DP_STEPS)])
+    finally:
+        Trainer.fit, data_loader.DataLoader = fit, loader_cls
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    torch.cuda.synchronize()
+    nccl_launches = counts()
+    nccl_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    if dist.is_initialized():
+        fail("23a: the train verb left its process group")
+    if seen.get("backend") != backend or seen.get("size") != 1:
+        fail(f"23a: the verb trained on a {seen.get('backend')} group of "
+             f"{seen.get('size')} ranks, expected {backend} at world 1")
+    if vstate.step != DP_STEPS or len(rec.records) != DP_STEPS:
+        fail(f"23a: the verb ended at step {vstate.step}, "
+             f"{len(rec.records)} steps recorded")
+    want_steps = []
+    for k, (warm, got, ms) in enumerate(rec.records):
+        want = predicted_launches(rb_ops, tcfg, warm)
+        want_steps.append(want)
+        row, ref = seen["trainer"].history[k][1], history[k][1]
+        say(f"[dp nccl] step {k} ({'warmup' if warm else 'post-warmup'}): "
+            f"loss {row['loss']:.6f} (phase 10 {ref['loss']:.6f}), "
+            f"grad_norm {row['grad_norm']:.5f} ({ref['grad_norm']:.5f}), "
+            f"{ms:.3f} ms (host clock, synchronized), launches {got}")
+        if got != want:
+            fail(f"23a step {k}: launches {got}, predicted {want}")
+        for key in ("loss", "grad_norm"):
+            if not np.allclose(row[key], ref[key], **TRAIN_LOSS_TOL):
+                fail(f"23a step {k}: {key} {row[key]} != phase 10's "
+                     f"{ref[key]} within {TRAIN_LOSS_TOL}")
+    if {k: sum(c[k] for _, c, _ in rec.records) for k in counted} != \
+            nccl_launches:
+        fail(f"23a: launches outside the steps: {nccl_launches}")
+    one = Trainer(tcfg, os.path.join(DP_DIR, "one"), dev)
+    ostate = one.fit(iter(batches[:DP_STEPS]), one.init_state(),
+                     max_steps=DP_STEPS)
+    one.logger.close()
+    worst, share, ok = param_gap(
+        {k: v.detach().cpu().numpy() for k, v in vstate.trainable().items()},
+        {k: v.detach().cpu().numpy() for k, v in ostate.trainable().items()},
+        lr_sum, np)
+    say(f"[dp nccl] after {DP_STEPS} steps the verb's parameters vs a "
+        f"one-card Trainer.fit on the same batches: max |diff| {worst:.3e} "
+        f"(2 x sum(lr) = {2 * lr_sum:.3e}), {share:.4%} of the entries "
+        f"beyond {DP_PARAM_ATOL}; peak memory {nccl_peak:.1f} MiB; "
+        f"{smi_line}")
+    if not ok:
+        fail("23a: the verb's parameters left the one-card run's bound")
+    # the post-warmup step with and without the group of one rank, in
+    # turns, on the one-card trainer: what the collectives cost there
+    env["MASTER_PORT"] = str(free_port())
+    os.environ.update(env)
+    try:
+        initialize_multihost(device=dev, backend=backend)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    mesh1 = global_data_mesh(dev)
+    gbatch = {k: torch.as_tensor(v, device=dev) for k, v in
+              batches[DP_STEPS].items()}
+
+    def one_step(m):
+        train_step(ostate, gbatch, tcfg, one.optimizer, warmup=False,
+                   mesh=m)
+
+    one_step(None)
+    one_step(mesh1)
+    turns = {"none": [], backend: []}
+    for _ in range(3):
+        for name, m in (("none", None), (backend, mesh1), (backend, mesh1),
+                        ("none", None)):
+            turns[name].append(median_ms(lambda: one_step(m), 1, torch))
+    prof = {name: profile_device([lambda: one_step(m)], torch)
+            for name, m in (("none", None), (backend, mesh1))}
+    dist.destroy_process_group()
+    say(f"[dp nccl] post-warmup step, one card, in turns (median of 6 "
+        f"each): without a group {statistics.median(turns['none']):.3f} "
+        f"ms, on the {backend} group of one rank "
+        f"{statistics.median(turns[backend]):.3f} ms (host clock, "
+        f"synchronized)" + "".join(
+            f"; {name}: {p['device_ms']:.3f} ms of device work in "
+            f"{p['ops']:.0f} device ops" for name, p in prof.items()
+            if p is not None) + f"; {smi_line}")
+    del one, ostate, vstate, seen, gbatch
+
+    # -- 23b-c. two ranks on the card over gloo ------------------------------
+    bpath = os.path.join(DP_DIR, "batches.pt")
+    torch.save(batches[:DP_STEPS * DP_RANKS], bpath)
+    rdv = f"file://{os.path.join(DP_DIR, 'rendezvous')}"
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks([dict(
+        rank=r, world=DP_RANKS, rdv=rdv, device=str(dev), batches=bpath,
+        train_config=tcfg.to_json(), model_dir=os.path.join(DP_DIR, "gloo"),
+        out=os.path.join(DP_DIR, f"rank{r}.pt")) for r in range(DP_RANKS)],
+        torch)
+    say(f"[dp gloo] {DP_RANKS} ranks on the one card: "
+        f"{time.perf_counter() - t0:.1f} s, process start and library "
+        f"loads included")
+    for r, res in enumerate(ranks):
+        fit_ = res["fit"]
+        for k, (warm, got, ms) in enumerate(fit_["records"]):
+            row = fit_["history"][k][1]
+            say(f"[dp gloo] rank {r} step {k}: loss {row['loss']:.6f}, "
+                f"grad_norm {row['grad_norm']:.5f}, {ms:.3f} ms a step "
+                f"(host clock; gloo stages every all-reduce through the "
+                f"host), launches {got}; replicas bit-equal "
+                f"{fit_['equal'][k]}")
+            if got != want_steps[k]:
+                fail(f"23b rank {r} step {k}: launches {got}, 23a's "
+                     f"{want_steps[k]}")
+            if not all(math.isfinite(v) for v in row.values()):
+                fail(f"23b rank {r} step {k}: non-finite metrics {row}")
+        if not all(fit_["equal"]) or len(fit_["equal"]) != DP_STEPS:
+            fail(f"23b rank {r}: replicas not bit-equal after each step: "
+                 f"{fit_['equal']}")
+        say(f"[dp gloo] rank {r}: peak memory {fit_['peak_mib']:.1f} MiB "
+            f"(two ranks share the card); {smi_line}")
+    for (_, a), (_, b) in zip(ranks[0]["fit"]["history"],
+                              ranks[1]["fit"]["history"]):
+        a, b = ({k: v for k, v in row.items() if k != "steptime_ms"}
+                for row in (a, b))
+        if a != b:
+            fail(f"23b: the ranks' averaged metrics differ: {a} vs {b}")
+    # run_eval: each window's odometry against one card on rank 0's
+    # checkpoint
+    tr = Trainer(tcfg, os.path.join(DP_DIR, "gloo"), dev)
+    tr.init_state()
+    step, one_preds = tr.eval_fn(), []
+
+    def recorded(batch):
+        o = step(batch)
+        one_preds.append(o)
+        return o
+
+    res_one = run_eval(recorded, cli._synthetic_dataset(
+        tcfg, "val", n_windows=DP_EVAL_WINDOWS), tcfg, None)
+    tr.logger.close()
+    one_preds = [p.cpu().numpy() for p in one_preds]
+    worst, bitwise = 0.0, True
+    for r, res in enumerate(ranks):
+        want = dict.fromkeys(counted, 0)
+        n_mine = len(res["eval"]["preds"])
+        want["gather_matmul"] = n_mine * 2 * ENCODER_CONVS
+        if res["eval"]["launches"] != want:
+            fail(f"23b rank {r}: run_eval launched "
+                 f"{res['eval']['launches']}, expected {want}")
+        for j, p in enumerate(res["eval"]["preds"]):
+            w = min(j * DP_RANKS + r, DP_EVAL_WINDOWS - 1)
+            d = float(np.abs(p - one_preds[w]).max())
+            worst, bitwise = max(worst, d), bitwise and d == 0.0
+            if not np.allclose(p, one_preds[w], **POSE_TOL):
+                fail(f"23b rank {r}: window {w} odometry off the one-card "
+                     f"run by {d:.3e}")
+        got = {k: v for k, v in res["eval"]["results"].items()
+               if k != "_meta"}
+        ref = {k: v for k, v in res_one.items() if k != "_meta"}
+        if json.dumps(got, sort_keys=True) != json.dumps(ref,
+                                                         sort_keys=True) \
+                and bitwise:
+            fail(f"23b rank {r}: run_eval's metrics differ from one card's "
+                 f"on bit-equal odometry")
+    fps = [res["eval"]["results"]["_meta"]["frames_per_s"] for res in ranks]
+    say(f"[dp gloo] run_eval over {DP_RANKS} ranks, {DP_EVAL_WINDOWS} "
+        f"windows: every window's odometry within {POSE_TOL} of one card's "
+        f"(max |diff| {worst:.3e}, bit-equal {bitwise}); frames/s "
+        f"{fps} (rank 0's run_eval clock) against one card's "
+        f"{res_one['_meta']['frames_per_s']:.3f}; {smi_line}")
+    # the sharded pose graph and BA against one process
+    E, M, n, wts = dp_fuse_inputs(np)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fused_one = fuse_windows_sharded(E, M, n, wts, device=dev, **DP_FUSE)
+    torch.cuda.synchronize()
+    fuse_ms = (time.perf_counter() - t0) * 1e3
+    whole, _ = dp_ba_problem(np)
+    ba_one = solve_ba_sharded(BAProblem(*(torch.as_tensor(a, device=dev)
+                                          for a in whole)), None,
+                              iters=DP_BA_ITERS)
+    if not np.array_equal(ranks[0]["fuse"]["poses"],
+                          ranks[1]["fuse"]["poses"]):
+        fail("23b: the ranks' fused trajectories differ")
+    got = ranks[0]["fuse"]["poses"]
+    dt, dq = pose_diff(got, fused_one, np)
+    ok = (np.allclose(got[:, :3], fused_one[:, :3], **DP_FUSE_TOL) and
+          dq <= DP_FUSE_Q_TOL)
+    say(f"[dp gloo] fuse_windows_sharded, {n} poses in "
+        f"{pgo_windows(n, DP_FUSE)} windows of "
+        f"{DP_FUSE['window']}: {DP_RANKS} ranks vs one process max |dt| "
+        f"{dt:.3e} m, |dq| {dq:.3e}; {ranks[0]['fuse']['ms']:.1f} ms "
+        f"(rank 0, host clock, the gather host-staged) vs "
+        f"{fuse_ms:.1f} ms on one card; {smi_line}")
+    if not ok:
+        fail(f"23b: fuse_windows_sharded off the one-process run beyond "
+             f"{DP_FUSE_TOL} / {DP_FUSE_Q_TOL}")
+    bp, bl = ranks[0]["ba"]["poses"], ranks[0]["ba"]["landmarks"]
+    for k in ("poses", "landmarks"):
+        if not np.array_equal(ranks[0]["ba"][k], ranks[1]["ba"][k]):
+            fail(f"23b: the ranks' BA {k} differ")
+    dpose = float(np.abs(bp - ba_one[0].cpu().numpy()).max())
+    dlm = float(np.abs(bl - ba_one[1].cpu().numpy()).max())
+    say(f"[dp gloo] solve_ba_sharded, {DP_BA_POSES} poses and "
+        f"{DP_BA_LANDMARKS} landmarks in {DP_RANKS} shards: max |diff| vs "
+        f"one process poses {dpose:.3e}, landmarks {dlm:.3e}; "
+        f"{ranks[0]['ba']['ms']:.1f} ms (rank 0, host clock); {smi_line}")
+    if dpose > BA_TOL or dlm > DP_LM_TOL:
+        fail(f"23b: solve_ba_sharded off the one-process run beyond "
+             f"{BA_TOL} / {DP_LM_TOL}")
+    # -- 23c. the tiny config, the card against the CPU ---------------------
+    tiny = tiny_config(type(tcfg))
+    tiny_lr = onecycle_lr(tiny.optimizer, tiny.train.steps)
+    for r, res in enumerate(ranks):
+        card, cpu = res["tiny"]["card"], res["tiny"]["cpu"]
+        for k in range(DP_STEPS):
+            for where, s in (("card", card[k]), ("cpu", cpu[k])):
+                if not s["equal"]:
+                    fail(f"23c rank {r} step {k} ({where}): replicas differ")
+            for key, v in cpu[k]["metrics"].items():
+                if not np.allclose(card[k]["metrics"][key], v,
+                                   **TRAIN_LOSS_TOL):
+                    fail(f"23c rank {r} step {k}: {key} card "
+                         f"{card[k]['metrics'][key]} vs cpu {v}")
+        say(f"[dp tiny] rank {r}: {DP_STEPS} data-parallel steps at the "
+            f"tiny config, card vs CPU: loss "
+            f"{card[-1]['metrics']['loss']:.6f} / "
+            f"{cpu[-1]['metrics']['loss']:.6f}, grad_norm "
+            f"{card[-1]['metrics']['grad_norm']:.5f} / "
+            f"{cpu[-1]['metrics']['grad_norm']:.5f} (held to "
+            f"{TRAIN_LOSS_TOL})")
+    worst, share, ok = param_gap(ranks[0]["tiny"]["card"][-1]["params"],
+                                 ranks[0]["tiny"]["cpu"][-1]["params"],
+                                 sum(float(tiny_lr(i))
+                                     for i in range(DP_STEPS)), np)
+    say(f"[dp tiny] parameters after {DP_STEPS} steps, card vs CPU: max "
+        f"|diff| {worst:.3e}, {share:.4%} beyond {DP_PARAM_ATOL}")
+    if not ok:
+        fail("23c: the card's parameters left the CPU run's bound")
+    shutil.rmtree(DP_DIR, ignore_errors=True)
+    return {"dp_verb_nccl_launches": nccl_launches,
+            "dp_fit_gloo_launches": ranks[0]["fit"]["launches"]}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose kernels are timed "
@@ -3812,6 +4527,11 @@ def main():
             dev, smi_line, np, torch),
         dev, smi_line, np, torch))
 
+    # -- 23. data-parallel training and evaluation ------------------------
+    more.update(data_parallel_phases(tcfg, batches, trainer.history, rb_ops,
+                                     cli, Trainer, counted, reset_counts,
+                                     counts, dev, smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -3833,7 +4553,9 @@ def main():
                      # closing on phase 20's circuit, the hier-cloud and
                      # cross-normal training and loop closing on the
                      # rendered loop; phase 22's train verb, evaluate verb
-                     # and streaming of each BEV-net option run
+                     # and streaming of each BEV-net option run;
+                     # phase 23's train verb on NCCL at world size 1
+                     # and rank 0's Trainer.fit over the gloo ranks
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -17,7 +17,11 @@ seeded initial weights where there is none) on the val split, writes
 ``--refine_ba`` and ``--refine_loops`` evaluate 3-frame windows fused
 by the pose graph (with bundle adjustment, with loop closing).
 ``--synthetic`` swaps the KITTI store for the generated scene.  Both
-run on the CUDA card unless ``--device cpu`` is given.
+run on the CUDA card unless ``--device cpu`` is given, and both run
+data-parallel over every process of a ``torchrun`` or SLURM launch (one
+process per card; ``train/distributed.py``):
+
+    torchrun --nproc_per_node 8 -m rslo_tpu_torch.cli train --config cfg.json --model_dir runs/x
 """
 from __future__ import annotations
 
@@ -144,21 +148,27 @@ def cmd_train(args):
     the stream still span the whole run.  Every ``steps_per_eval`` steps
     a checkpoint is written and the val split evaluated (256 windows);
     the best step by ``update_best_checkpoint`` is recorded in
-    ``best_ckpt.json`` and copied to ``ckpt_best/``.  The JAX verb's
-    multi-host setup and data mesh reduce to this one card
-    (data-parallel training is ROADMAP A13)."""
+    ``best_ckpt.json`` and copied to ``ckpt_best/``.  Under ``torchrun``
+    or SLURM the run is data-parallel over D processes, as JAX's over D
+    devices: each rank collates JAX's D-sample batch and trains on its
+    own row, and rank 0 alone writes the logs, events and
+    checkpoints."""
     import torch
+    import torch.distributed as dist
 
     from .data.dataset import DATASETS
     from .data.loader import DataLoader
-    from .train.loop import Trainer
+    from .train.distributed import global_data_mesh, initialize_multihost
+    from .train.loop import Trainer, shard_batch
     from .train.step import prepare_batch
 
+    formed = initialize_multihost(device=args.device)
+    mesh = global_data_mesh(args.device)
     cfg = _load_cfg(args.config)
     if args.steps:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     steps=args.steps))
-    trainer = Trainer(cfg, args.model_dir, device=args.device,
+    trainer = Trainer(cfg, args.model_dir, mesh=mesh,
                       self_supervised=not args.supervised)
     trainer.logger.log_text(f"config:\n{cfg.to_json()}")
     if args.synthetic:
@@ -167,16 +177,13 @@ def cmd_train(args):
         dataset = DATASETS[cfg.data.dataset](cfg.data, "train")
     # resume the data stream where the checkpoint left it
     resume_step = trainer.ckpt.latest_step() or 0
-    loader = DataLoader(dataset, cfg.data, 1, cfg.train.steps, train=True,
-                        seed=cfg.train.seed, last_iter=resume_step - 1)
-
-    def unbatched(b):
-        """The loader's batch of one sample, as train_step takes it."""
-        return {k: v[0] for k, v in b.items() if k != "meta"}
+    loader = DataLoader(dataset, cfg.data, mesh.size, cfg.train.steps,
+                        train=True, seed=cfg.train.seed,
+                        last_iter=resume_step - 1)
 
     try:
         stream = iter(loader)
-        first = unbatched(next(stream))
+        first = shard_batch(next(stream), mesh)
         state = trainer.init_state(
             pretrained=args.pretrained,
             pretrained_include=args.pretrained_include,
@@ -185,7 +192,7 @@ def cmd_train(args):
         def batches():
             yield first
             for b in stream:
-                yield unbatched(b)
+                yield shard_batch(b, mesh)
 
         if args.synthetic:
             eval_ds = _synthetic_dataset(cfg, "val", n_windows=16)
@@ -204,9 +211,11 @@ def cmd_train(args):
                 return
             from .eval.runner import run_eval
             res = run_eval(tr.eval_fn(), eval_ds, cfg, tr.logger,
-                           max_windows=256, plot_dir=_plot_dir(
+                           max_windows=256, mesh=mesh, plot_dir=_plot_dir(
                                tr.logger,
                                f"{args.model_dir}/plots/step_{step_i}"))
+            if not tr.rank0:
+                return
             if "avg" in res:
                 tr.logger.log_metrics({"eval": res["avg"]}, step_i)
                 # evaluate --ckpt_step best reads this back
@@ -246,14 +255,24 @@ def cmd_train(args):
     finally:
         loader.close()
         trainer.logger.close()
+        if formed:
+            dist.destroy_process_group()
     return state
 
 
 def cmd_evaluate(args) -> dict:
+    """Under ``torchrun`` or SLURM the windows are sharded over the
+    ranks (``eval/runner.py``); every rank returns the results, rank 0
+    alone writes them."""
+    import torch.distributed as dist
+
     from .data.dataset import DATASETS
     from .eval.runner import run_eval, run_eval_refined
+    from .train.distributed import global_data_mesh, initialize_multihost
     from .train.loop import Trainer
 
+    formed = initialize_multihost(device=args.device)
+    mesh = global_data_mesh(args.device)
     cfg = _load_cfg(args.config)
     refine = args.refine or args.refine_ba or args.refine_loops
     # the refined evaluation fuses the redundant pairs of 3-frame windows
@@ -277,15 +296,16 @@ def cmd_evaluate(args) -> dict:
         ckpt_step = int(best["step"])
     elif ckpt_step is not None:
         ckpt_step = int(ckpt_step)
-    trainer = Trainer(cfg, args.model_dir, device=args.device)
+    trainer = Trainer(cfg, args.model_dir, mesh=mesh)
     try:
         if best is not None:
             trainer.logger.log_text(
                 f"evaluating best checkpoint: step {ckpt_step} "
                 f"({best['metric_name']}={best['metric']:.3f})")
         trainer.init_state(ckpt_step=ckpt_step)
-        plot_dir = _plot_dir(trainer.logger,
-                             str(Path(args.model_dir) / "plots"))
+        plot_dir = (_plot_dir(trainer.logger,
+                              str(Path(args.model_dir) / "plots"))
+                    if trainer.rank0 else None)
         if refine:
             results = run_eval_refined(
                 trainer.eval_fn(), dataset, cfg, trainer.logger,
@@ -295,16 +315,19 @@ def cmd_evaluate(args) -> dict:
                 loop_score_threshold=args.loop_score_threshold,
                 eval_step_cov=(trainer.eval_fn(with_cov=True)
                                if args.refine_ba else None),
-                plot_dir=plot_dir)
+                plot_dir=plot_dir, mesh=mesh)
         else:
             results = run_eval(trainer.eval_fn(), dataset, cfg,
                                trainer.logger, max_windows=args.max_windows,
-                               plot_dir=plot_dir)
+                               plot_dir=plot_dir, mesh=mesh)
     finally:
         trainer.logger.close()
-    print(json.dumps(results, indent=2, default=str))
-    out = Path(args.model_dir) / "eval_results.json"
-    out.write_text(json.dumps(results, indent=1, default=str))
+        if formed:
+            dist.destroy_process_group()
+    if trainer.rank0:
+        print(json.dumps(results, indent=2, default=str))
+        out = Path(args.model_dir) / "eval_results.json"
+        out.write_text(json.dumps(results, indent=1, default=str))
     return results
 
 

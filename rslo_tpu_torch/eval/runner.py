@@ -1,9 +1,14 @@
-"""Evaluation driver on one card (counterpart of
-``rslo_tpu/eval/runner.py``): ``run_eval``, two-frame inference over an
-ordered split, odometries chained into trajectories, KITTI metrics; and
-``run_eval_refined``, multi-frame windows fused by pose-graph
-refinement, optionally with bundle adjustment per window and loop
-closing per sequence, on the eval step's device.
+"""The evaluation runner (counterpart of ``rslo_tpu/eval/runner.py``):
+``run_eval``, two-frame inference over an ordered split, odometries
+chained into trajectories, KITTI metrics; and ``run_eval_refined``,
+multi-frame windows fused by pose-graph refinement, optionally with
+bundle adjustment per window and loop closing per sequence, on the eval
+step's device.
+
+Over a data mesh of D ranks (``train/distributed.py``) step i evaluates
+windows i..i+D-1, one a rank (clamped at the last window, as JAX's
+device batch is), and gathers every rank's results; the metrics, the
+fusion and the loop closing then run on every rank alike.
 """
 from __future__ import annotations
 
@@ -23,20 +28,31 @@ from ..pgo.ba_bridge import cov_sqrt_info, refine_window_ba
 from ..pgo.loop_closure import close_loops
 from ..pgo.refine import (calibrate_pair_info, duplicate_pair_variance,
                           fuse_window_odometry, window_pairs_to_edges)
+from ..train.distributed import all_gather
 from .kitti_odometry import evaluate_sequence
+
+
+def _gather_rows(row: np.ndarray, mesh) -> np.ndarray:
+    """This rank's float32 row -> (D, len) every rank's, in rank order."""
+    if mesh is None or mesh.group is None:
+        return row[None]
+    return all_gather(torch.from_numpy(row).to(mesh.device),
+                      mesh).cpu().numpy()
 
 
 def run_eval(eval_step: Callable, dataset, cfg: PipelineCfg, logger=None,
              max_windows: int | None = None,
-             plot_dir: str | None = None) -> Dict[str, dict]:
+             plot_dir: str | None = None, mesh=None) -> Dict[str, dict]:
     """eval_step: collated batch of one window -> odometry (1, P, 7) on
     its device, as ``Trainer.eval_fn()`` returns it (the JAX version
     takes the net, its variables and a mesh beside a jitted step; here
     the step carries the net and its device).  Iterates the ordered eval
-    split; returns per-sequence metric dicts, their average and a
-    ``_meta`` block with the throughput."""
+    split, sharded over ``mesh``'s ranks when it has a process group;
+    returns per-sequence metric dicts, their average and a ``_meta``
+    block with the throughput."""
     n = len(dataset) if max_windows is None else min(len(dataset),
                                                     max_windows)
+    D, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
     preds = np.zeros((n, 7), np.float32)
     gts = np.zeros((n, 7), np.float32)
     seq_ids = np.zeros((n,), np.int64)
@@ -44,8 +60,9 @@ def run_eval(eval_step: Callable, dataset, cfg: PipelineCfg, logger=None,
 
     def host_prep(i):
         """Store read + collate (+ pinning, so that the step's copy to
-        the card is asynchronous): CPU-bound, run in threads."""
-        samples = [dataset[i]]
+        the card is asynchronous) of this rank's window of step i:
+        CPU-bound, run in threads."""
+        samples = [dataset[min(i + r, n - 1)]]
         batch = collate(samples, cfg.data)
         batch = {k: torch.from_numpy(batch[k])
                  for k in ("points", "point_mask")}
@@ -59,9 +76,14 @@ def run_eval(eval_step: Callable, dataset, cfg: PipelineCfg, logger=None,
 
     def record(i, samples, out):
         out = out.cpu().numpy()      # the one wait for the device a window
-        preds[i] = out[0, 0]
-        gts[i] = samples[0]["odometry"][0]
-        seq_ids[i] = samples[0]["seq"]
+        s = samples[0]
+        rows = _gather_rows(np.concatenate(
+            [out[0, 0], s["odometry"][0], [s["seq"]]]).astype(np.float32),
+            mesh)
+        for d in range(min(D, n - i)):
+            preds[i + d] = rows[d, :7]
+            gts[i + d] = rows[d, 7:14]
+            seq_ids[i + d] = int(rows[d, 14])
 
     # warm-up outside the clock: the first window pays the kernels'
     # first launches and the allocator's growth
@@ -76,11 +98,11 @@ def run_eval(eval_step: Callable, dataset, cfg: PipelineCfg, logger=None,
     inflight = collections.deque()
     with ThreadPoolExecutor(max_workers=2) as pool:
         prep = collections.deque()
-        nxt = 1  # window 0 done in warm-up
+        nxt = D  # windows 0..D-1 done in warm-up
         while nxt < n or prep or inflight:
             while nxt < n and len(prep) < 4:
                 prep.append(pool.submit(host_prep, nxt))
-                nxt += 1
+                nxt += D
             while prep and prep[0].done() and len(inflight) < 3:
                 inflight.append(dispatch(prep.popleft().result()))
             if not inflight:
@@ -90,9 +112,9 @@ def run_eval(eval_step: Callable, dataset, cfg: PipelineCfg, logger=None,
                     break
             record(*inflight.popleft())
     elapsed = time.time() - t0
-    if n > 1:
-        fps = (n - 1) / max(elapsed, 1e-9)
-    else:  # everything fit in the warm-up window
+    if n > D:
+        fps = (n - D) / max(elapsed, 1e-9)
+    else:  # everything fit in the warm-up step
         elapsed, fps = t_warm, n / max(t_warm, 1e-9)
 
     results: Dict[str, dict] = {"_meta": {"windows": n,
@@ -150,7 +172,8 @@ def run_eval_refined(eval_step: Callable, dataset, cfg: PipelineCfg,
                      loop_score_threshold: float = 0.8,
                      loop_points: int = 4096,
                      eval_step_cov: Callable | None = None,
-                     plot_dir: str | None = None) -> Dict[str, dict]:
+                     plot_dir: str | None = None,
+                     mesh=None) -> Dict[str, dict]:
     """Multi-frame-window eval + pose-graph refinement.  Needs an eval
     split with seq_length >= 3, so that windows contribute redundant
     (i, i+2) edges.  ``eval_step`` is ``Trainer.eval_fn()``'s: collated
@@ -169,7 +192,10 @@ def run_eval_refined(eval_step: Callable, dataset, cfg: PipelineCfg,
     ``use_loops`` runs a loop-closure pass (pgo/loop_closure.py) over
     each sequence's fused trajectory: polar-descriptor place
     recognition, ICP loop edges, pose-graph re-optimization.  The
-    result has the JAX version's keys."""
+    result has the JAX version's keys.  Sharded over ``mesh``'s ranks as
+    ``run_eval``: each rank evaluates (and, under ``use_ba``, adjusts)
+    its own window of a step, then the windows' pair motions, frames and
+    loop clouds are gathered."""
     n = len(dataset) if max_windows is None else min(len(dataset),
                                                     max_windows)
     sample0 = dataset[0]
@@ -183,21 +209,21 @@ def run_eval_refined(eval_step: Callable, dataset, cfg: PipelineCfg,
     starts = np.zeros((n,), np.int64)
     frame_clouds: Dict[tuple, np.ndarray] = {}
 
-    def _keep_cloud(seq, frame, pts_raw):
-        if not use_loops or (seq, frame) in frame_clouds:
-            return
+    def loop_cloud(pts_raw):
         p = np.asarray(pts_raw)[:, :3].astype(np.float32)
         step = max(1, len(p) // loop_points)
         p = p[::step][:loop_points]
         if len(p) < loop_points:   # pad by repetition: fixed ICP shapes
             p = np.concatenate(
                 [p, p[np.arange(loop_points - len(p)) % len(p)]])
-        frame_clouds[(seq, frame)] = p
+        return p
 
+    D, r = (1, 0) if mesh is None else (mesh.size, mesh.rank)
     t0 = time.time()
     use_cov_ba = use_ba and eval_step_cov is not None
     device = None
-    for k in range(n):
+    for i in range(0, n, D):
+        k = min(i + r, n - 1)
         sample = dataset[k] if k else sample0
         batch = collate([sample], cfg.data)
         batch = {key: torch.from_numpy(batch[key])
@@ -210,14 +236,9 @@ def run_eval_refined(eval_step: Callable, dataset, cfg: PipelineCfg,
         else:
             out = eval_step(batch)
         device = out.device
-        preds[k] = out.cpu().numpy()[0]
-        gts[k] = sample["odometry"]
-        seq_ids[k] = sample["seq"]
-        starts[k] = sample["frames"][0]
-        for t, fr in enumerate(sample["frames"]):
-            _keep_cloud(sample["seq"], int(fr), sample["points"][t])
+        pred = out.cpu().numpy()[0]
         if use_ba:
-            consec = [preds[k][offsets.index((t, t + 1))]
+            consec = [pred[offsets.index((t, t + 1))]
                       for t in range(L - 1)]
             if use_cov_ba:
                 # network voxel centroids + full-covariance whitening
@@ -240,8 +261,26 @@ def run_eval_refined(eval_step: Callable, dataset, cfg: PipelineCfg,
                 refined_poses = refine_window_ba(pts, np.stack(consec),
                                                  device=device)
             for p_i, (a, b) in enumerate(offsets):
-                preds[k][p_i] = np_calc_vo(refined_poses[a][None],
-                                           refined_poses[b][None])[0]
+                pred[p_i] = np_calc_vo(refined_poses[a][None],
+                                       refined_poses[b][None])[0]
+        row = [pred.ravel(), np.asarray(sample["odometry"]).ravel(),
+               [sample["seq"]], sample["frames"]]
+        if use_loops:
+            row += [loop_cloud(sample["points"][t]).ravel()
+                    for t in range(L)]
+        rows = _gather_rows(np.concatenate(row).astype(np.float32), mesh)
+        for d in range(min(D, n - i)):
+            row = rows[d]
+            preds[i + d] = row[:n_pairs * 7].reshape(n_pairs, 7)
+            gts[i + d] = row[n_pairs * 7:n_pairs * 14].reshape(n_pairs, 7)
+            seq = int(row[n_pairs * 14])
+            frames = row[n_pairs * 14 + 1:n_pairs * 14 + 1 + L].astype(int)
+            seq_ids[i + d], starts[i + d] = seq, frames[0]
+            if use_loops:
+                clouds = row[n_pairs * 14 + 1 + L:].reshape(L, loop_points,
+                                                             3)
+                for t, fr in enumerate(frames):
+                    frame_clouds.setdefault((seq, int(fr)), clouds[t])
     elapsed = time.time() - t0
 
     results: Dict[str, dict] = {"_meta": {"windows": n,

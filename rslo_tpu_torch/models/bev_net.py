@@ -35,6 +35,7 @@ from ..config.schema import OdomCfg
 from ..geometry import (decode_tq_map, grid_cell_coords, hemisphere,
                         matrix_to_quat, qnormalize, rotate_vec_by_q,
                         weighted_kabsch)
+from ..utils.mesh_axis import pmean_if_present
 from .attention import SELayer, SpatialAttention
 from .middle import update_running_stats
 from .semiglobal_bn import SemiGlobalSyncBN
@@ -113,10 +114,11 @@ class Norm(nn.Module):
     Train mode normalizes with the statistics of the whole (N, H, W)
     batch, unmasked (biased variance), and updates the running
     statistics as 0.99 * old + 0.01 * batch; eval mode applies them.
-    bn_type "none" is the identity.  "bn" and "sync_bn" are the same on
-    one card (cross-card statistics are not ported).
-    "semiglobal_sync_bn" is a ``SemiGlobalSyncBN_0`` submodule, as in
-    JAX."""
+    bn_type "none" is the identity.  "sync_bn" averages the moments E[x]
+    and E[x^2] over the ranks of the "data" axis inside a data-parallel
+    step (``utils/mesh_axis.py``; elsewhere, as "bn" always, the
+    statistics are the rank's own).  "semiglobal_sync_bn" is a
+    ``SemiGlobalSyncBN_0`` submodule, as in JAX."""
 
     def __init__(self, num_features: int, bn_type: str = "sync_bn",
                  eps: float = 1e-3, momentum: float = 0.99):
@@ -143,8 +145,11 @@ class Norm(nn.Module):
         xf = x.float()
         if self.training:
             mean = torch.mean(xf, dim=(0, 2, 3))
-            var = torch.mean(xf * xf, dim=(0, 2, 3)) - mean * mean
-            var = torch.maximum(var, torch.zeros_like(var))
+            m2 = torch.mean(xf * xf, dim=(0, 2, 3))
+            if self.bn_type == "sync_bn":
+                mean = pmean_if_present(mean, "data")
+                m2 = pmean_if_present(m2, "data")
+            var = torch.maximum(m2 - mean * mean, torch.zeros_like(m2))
             update_running_stats(self, mean, var)
         else:
             mean, var = self.mean, self.var

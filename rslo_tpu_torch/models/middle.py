@@ -39,6 +39,7 @@ from ..config.schema import MiddleCfg
 from ..ops import band_conv as bc
 from ..ops import sparse_conv as sc
 from ..ops.dma_gather import gather_matmul, sparse_conv
+from ..utils.mesh_axis import psum_if_present
 
 
 class FrameGeometry(NamedTuple):
@@ -215,13 +216,18 @@ class MaskedBatchNorm(nn.Module):
     """BatchNorm over the valid rows of a (V, C) feature array.  Train
     mode normalizes with the batch statistics of the valid rows
     (n = sum(mask) + 1e-6, biased variance) and updates the running
-    statistics as 0.99 * old + 0.01 * batch; eval mode applies them."""
+    statistics as 0.99 * old + 0.01 * batch; eval mode applies them.
+    With ``sync``, inside a data-parallel step, n, sum(x) and sum(x^2)
+    are summed over the ranks of the "data" axis: the statistics of the
+    pooled rows, not a mean of the ranks' means (each rank's n carries
+    its own 1e-6, as in JAX)."""
 
     def __init__(self, num_features: int, eps: float = 1e-3,
-                 momentum: float = 0.99):
+                 momentum: float = 0.99, sync: bool = False):
         super().__init__()
         self.eps = eps
         self.momentum = momentum
+        self.sync = sync
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -231,8 +237,12 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask[:, None].to(x.dtype)
             n = torch.sum(m) + 1e-6
-            mean = torch.sum(x * m, dim=0) / n
-            var = torch.sum(x * x * m, dim=0) / n - mean * mean
+            s1 = torch.sum(x * m, dim=0)
+            s2 = torch.sum(x * x * m, dim=0)
+            if self.sync:
+                n, s1, s2 = (psum_if_present(t, "data") for t in (n, s1, s2))
+            mean = s1 / n
+            var = s2 / n - mean * mean
             var = torch.maximum(var, torch.zeros_like(var))
             update_running_stats(self, mean, var)
         else:
@@ -295,7 +305,9 @@ class SparseMiddleCov(nn.Module):
         norm_widths += [co for _, co, _ in decoder[:-1]]
         self._norms = []
         for i, c in enumerate(norm_widths):
-            m = MaskedBatchNorm(c)
+            # the encoder's syncs under "sync_bn"; the decoder's never
+            m = MaskedBatchNorm(c, sync=(cfg.bn_type == "sync_bn" and
+                                         i < self._n_enc_norms))
             self.add_module(f"MaskedBatchNorm_{i}", m)
             self._norms.append(m)
 

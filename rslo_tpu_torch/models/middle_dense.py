@@ -37,6 +37,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config.schema import MiddleCfg
+from ..utils.mesh_axis import psum_if_present
 from .middle import update_running_stats
 
 _P1 = (1, 1, 1)
@@ -106,18 +107,22 @@ class DenseConvTranspose(nn.Module):
         return y.to(x.dtype)
 
 
-def _masked_bn_train(x, occ, scale, bias, eps):
+def _masked_bn_train(x, occ, scale, bias, eps, sync):
     """Train-mode masked BN, y = ((x - mean) * rsqrt(var + eps) * scale
     + bias) * occ over the active cells (n = sum(occ) + 1e-6, var =
-    max(s2/n - mean^2, 0)), in f32 (f64 for an f64 input).  Returns
+    max(s2/n - mean^2, 0)), in f32 (f64 for an f64 input); with
+    ``sync``, n, s1 and s2 summed over the "data" axis's ranks.  Returns
     (y, mean, var)."""
     dims = (0, 2, 3, 4)
     v = (1, -1, 1, 1, 1)
     xf = x.to(torch.promote_types(x.dtype, torch.float32))
     n = torch.sum(occ) * 1.0 + 1e-6
-    mean = torch.sum(xf * occ, dim=dims) / n
-    var = torch.clamp(torch.sum(xf * xf * occ, dim=dims) / n - mean * mean,
-                      min=0.0)
+    s1 = torch.sum(xf * occ, dim=dims)
+    s2 = torch.sum(xf * xf * occ, dim=dims)
+    if sync:
+        n, s1, s2 = (psum_if_present(t, "data") for t in (n, s1, s2))
+    mean = s1 / n
+    var = torch.clamp(s2 / n - mean * mean, min=0.0)
     y = ((xf - mean.view(v)) * torch.rsqrt(var.view(v) + eps) *
          scale.view(v) + bias.view(v)) * occ
     return y.to(x.dtype), mean, var
@@ -126,12 +131,14 @@ def _masked_bn_train(x, occ, scale, bias, eps):
 class DenseMaskedBN(nn.Module):
     """BN over the active grid cells with running statistics (flax's
     convention: biased variance, 0.99 * old + 0.01 * batch); the output
-    is masked by the occupancy and cast to the input dtype."""
+    is masked by the occupancy and cast to the input dtype.  ``sync``:
+    the pooled statistics of every rank's cells inside a data-parallel
+    step, as ``middle.MaskedBatchNorm``."""
 
     def __init__(self, num_features: int, eps: float = 1e-3,
-                 momentum: float = 0.99):
+                 momentum: float = 0.99, sync: bool = False):
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps, self.momentum, self.sync = eps, momentum, sync
         self.scale = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("mean", torch.zeros(num_features))
@@ -141,8 +148,9 @@ class DenseMaskedBN(nn.Module):
         if self.training:
             # checkpointed: the backward keeps the input (in its own
             # dtype) and recomputes the f32 grids autograd would keep
+            # (and, synced, their sums' all-reduce, on every rank alike)
             y, mean, var = checkpoint(_masked_bn_train, x, occ, self.scale,
-                                      self.bias, self.eps,
+                                      self.bias, self.eps, self.sync,
                                       use_reentrant=False)
             update_running_stats(self, mean, var)
             return y
@@ -190,7 +198,8 @@ class DenseMiddleCov(nn.Module):
             s = (s,) * 3 if isinstance(s, int) else s
             add("DenseConv", DenseConv(cin, co, k, s, p))
             if enc_bn:
-                add("DenseMaskedBN", DenseMaskedBN(co))
+                add("DenseMaskedBN",
+                    DenseMaskedBN(co, sync=cfg.bn_type == "sync_bn"))
             cin = co
         # the covariance decoder, always normalized but its last conv
         for kind, ci, co in (("DenseConvTranspose", c2, c1),

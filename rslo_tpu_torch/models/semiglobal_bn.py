@@ -11,8 +11,9 @@ stability probe:
 
 and then normalizes with the updated RUNNING statistics (not the batch
 ones), in train mode too; eval mode applies them unchanged.  No
-gradient flows through the statistics.  The cross-card mean of the
-moments is not ported: on one card it is the identity.
+gradient flows through the statistics.  Inside a data-parallel step the
+batch moments E[x] and E[x^2] are averaged over the ranks of the "data"
+axis first (``utils/mesh_axis.py``), as JAX's ``pmean``.
 
 Eight buffers, the flax ``batch_stats`` leaves: ``mean``, ``var``,
 ``mean_dyn_mom``, ``var_dyn_mom``, ``mean_g2``, ``var_g2``,
@@ -22,6 +23,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..utils.mesh_axis import pmean_if_present
 
 STATS = ("mean", "var", "mean_dyn_mom", "var_dyn_mom", "mean_g2", "var_g2",
          "mean_probe", "var_probe")
@@ -66,8 +69,9 @@ class SemiGlobalSyncBN(nn.Module):
     def update_statistics(self, x: torch.Tensor):
         xf = x.float()
         dims = (0,) + tuple(range(2, x.dim()))
-        mu = torch.mean(xf, dim=dims)
-        var = torch.clamp(torch.mean(xf * xf, dim=dims) - mu * mu, min=0.0)
+        mu = pmean_if_present(torch.mean(xf, dim=dims), "data")
+        m2 = pmean_if_present(torch.mean(xf * xf, dim=dims), "data")
+        var = torch.clamp(m2 - mu * mu, min=0.0)
         self.mean.copy_(self.mean_dyn_mom * mu +
                         (1 - self.mean_dyn_mom) * self.mean)
         self.var.copy_(self.var_dyn_mom * var +

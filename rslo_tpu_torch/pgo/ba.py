@@ -1,6 +1,6 @@
 """Windowed bundle adjustment with Schur-complement landmark elimination
-(counterpart of ``rslo_tpu/pgo/ba.py``; its sharded solver is not
-ported).
+(counterpart of ``rslo_tpu/pgo/ba.py``), on one device or with the
+landmarks sharded over the data mesh (``solve_ba_sharded``).
 
 Poses and landmarks (voxel-map points) are optimized jointly inside a
 keyframe window.  The normal system
@@ -24,6 +24,7 @@ full float32 (no TF32), as JAX pins ``Precision.HIGHEST``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import torch
@@ -31,6 +32,8 @@ import torch
 from ..geometry import qexp, qmult, qnormalize, rotate_vec_by_q
 from ..losses.consistency import inv3x3
 from ..ops.precision import f32_matmul
+from ..train.distributed import all_gather
+from ..utils.mesh_axis import bind_axis, psum_if_present
 
 
 class BAProblem(NamedTuple):
@@ -143,16 +146,22 @@ def _reduced_system(problem: BAProblem, r, Jp, Jl, damping):
     return S, rhs, Hll_inv, gl, B
 
 
+def _identity(x):
+    return x
+
+
 @f32_matmul()
-def ba_step(problem: BAProblem, damping: float = 1e-4):
+def ba_step(problem: BAProblem, damping: float = 1e-4, psum=_identity):
     """One Gauss-Newton step with Schur elimination, on the problem's
     device.  Returns the updated problem and the cost before the step.
     The factorization's status is not read (no host sync): a failed one
-    gives NaN, as in JAX."""
+    gives NaN, as in JAX.  ``psum`` sums the cost and the reduced
+    system over the shards of a sharded problem (``solve_ba_sharded``)."""
     r, Jp, Jl = _linearize(problem)
-    cost = torch.sum(r * r)
+    cost = psum(torch.sum(r * r))
     W = problem.poses.shape[0]
     S, rhs, Hll_inv, gl, B = _reduced_system(problem, r, Jp, Jl, damping)
+    S, rhs = psum(S), psum(rhs)
     free = ~problem.anchor.repeat_interleave(6)
     S = torch.where(free[:, None] & free[None, :], S, 0.0)
     S = S + torch.diag(torch.where(free, damping, 1.0).to(S.dtype))
@@ -177,3 +186,26 @@ def solve_ba(problem: BAProblem, iters: int = 5, damping: float = 1e-4):
         problem, _ = ba_step(problem, damping)
     r, _, _ = _linearize(problem)
     return problem, torch.sum(r * r)
+
+
+@f32_matmul()
+def solve_ba_sharded(problem: BAProblem, mesh=None, iters: int = 5,
+                     damping: float = 1e-4):
+    """``solve_ba`` with the landmarks and observations sharded over the
+    ranks of ``mesh`` (``train/distributed.py::DataMesh``): ``problem``
+    holds this rank's landmark shard and the observations of it, with
+    ``obs_lm`` local to the shard; the poses and anchors are replicated.
+    Each step sums the cost and the reduced camera system over the ranks,
+    every rank solves the same system and back-substitutes its own
+    landmarks.  Returns (poses (W, 7), every rank's landmarks in rank
+    order (D * K, 3), the cost before the last step), the same on every
+    rank; without a process group, the unsharded problem's."""
+    group = None if mesh is None else mesh.group
+    with (bind_axis("data", group, mesh.size) if group is not None
+          else contextlib.nullcontext()):
+        cost = torch.zeros((), device=problem.poses.device)
+        for _ in range(iters):
+            problem, cost = ba_step(problem, damping,
+                                    lambda x: psum_if_present(x, "data"))
+    return (problem.poses, all_gather(problem.landmarks, mesh).reshape(-1, 3),
+            cost)

@@ -1,10 +1,12 @@
-"""Single-card training loop (counterpart of
-``rslo_tpu/train/loop.py``): state from the seed or the latest
-checkpoint, then the step loop with the host-side warmup switch,
-periodic checkpoints and an eval hook.  Metrics go to ``Trainer.logger``
-(text, json-lines, TensorBoard events) and are kept in
-``Trainer.history``.  ``init_state`` can warm-start from another run
-(``utils/param_surgery.py``)."""
+"""Training loop (counterpart of ``rslo_tpu/train/loop.py``): state
+from the seed or the latest checkpoint, then the step loop with the
+host-side warmup switch, periodic checkpoints and an eval hook.  Metrics
+go to ``Trainer.logger`` (text, json-lines, TensorBoard events) and are
+kept in ``Trainer.history``.  ``init_state`` can warm-start from another
+run (``utils/param_surgery.py``).  Over a data mesh of several ranks
+(``train/distributed.py``) each rank runs this loop on its own samples
+with the data-parallel step; rank 0's state is broadcast at the start,
+and only rank 0 writes logs, events and checkpoints."""
 from __future__ import annotations
 
 import functools
@@ -20,6 +22,7 @@ from ..models.net import OdomNet
 from ..utils.logging import MetricLogger
 from ..utils.param_surgery import flatten, load_pretrained
 from .checkpoint import CheckpointManager
+from .distributed import DataMesh, broadcast_
 from .optim import build_optimizer
 from .state import TrainState
 from .step import eval_step, train_step
@@ -33,6 +36,15 @@ def device_prefetch(batches: Iterable[dict], device):
                for k, v in b.items() if k != "meta"}
 
 
+def shard_batch(batch: dict, mesh: DataMesh) -> dict:
+    """This rank's sample of a collated batch of ``mesh.size`` rows (row
+    ``mesh.rank`` of each array, "meta" dropped): JAX's sharding of the
+    batch over the "data" axis, with the rows of the other ranks read
+    and thrown away, so every rank sees the batch stream JAX's devices
+    see."""
+    return {k: v[mesh.rank] for k, v in batch.items() if k != "meta"}
+
+
 def make_optimizer(cfg: PipelineCfg, model: torch.nn.Module):
     """``build_optimizer`` for ``model``'s parameters plus the alphas,
     with weight decay on the flax ``kernel`` leaves only."""
@@ -43,13 +55,22 @@ def make_optimizer(cfg: PipelineCfg, model: torch.nn.Module):
 
 
 class Trainer:
+    """``mesh`` is the data mesh (default: this process alone on
+    ``device``); with one, the trainer runs on the mesh's device and
+    rank 0 alone writes."""
+
     def __init__(self, cfg: PipelineCfg, model_dir: str, device="cuda",
-                 self_supervised: bool = True):
+                 self_supervised: bool = True,
+                 mesh: Optional[DataMesh] = None):
         self.cfg = cfg
         self.model_dir = Path(model_dir)
-        self.device = torch.device(device)
+        if mesh is None:
+            mesh = DataMesh(None, 0, 1, torch.device(device))
+        self.mesh = mesh
+        self.device = mesh.device
+        self.rank0 = mesh.rank == 0
         self.self_supervised = self_supervised
-        self.logger = MetricLogger(model_dir)
+        self.logger = MetricLogger(model_dir, enabled=self.rank0)
         self.ckpt = CheckpointManager(str(self.model_dir / "ckpt"),
                                       cfg.train.checkpoint_max_keep)
         self.history = []        # (step, {metric: float})
@@ -65,7 +86,24 @@ class Trainer:
         checkpoint, ``pretrained`` (another run's model dir) warm-starts
         the state from that run's latest checkpoint: the parameters and
         BN statistics whose flax paths pass the include/exclude regexes
-        and whose shapes match, and the loss alphas."""
+        and whose shapes match, and the loss alphas.  Over a mesh, every
+        rank then takes rank 0's state (JAX's replicated ``device_put``)."""
+        state = self._init_state(pretrained, pretrained_include,
+                                 pretrained_exclude, ckpt_step)
+        if self.mesh.group is not None:
+            # every tensor of the state and the two counters, as one
+            # tensor on the mesh's device
+            counters = torch.tensor([state.step, state.opt_state.count],
+                                    device=self.device)
+            broadcast_([*state.model.state_dict().values(),
+                        *state.alphas.values(),
+                        *state.opt_state.mu.values(),
+                        *state.opt_state.nu.values(), counters], self.mesh)
+            state.step, state.opt_state.count = map(int, counters.tolist())
+        return state
+
+    def _init_state(self, pretrained, pretrained_include,
+                    pretrained_exclude, ckpt_step) -> TrainState:
         gen = torch.Generator().manual_seed(self.cfg.train.seed)
         self.net = OdomNet(self.cfg, gen).to(self.device).train()
         n_params = sum(p.numel() for p in self.net.parameters())
@@ -111,7 +149,9 @@ class Trainer:
             eval_hook=None, max_steps: Optional[int] = None) -> TrainState:
         """Train up to ``max_steps`` (``cfg.train.steps`` by default);
         every ``steps_per_eval`` steps save a checkpoint, then call
-        ``eval_hook(trainer, state, step)``."""
+        ``eval_hook(trainer, state, step)`` (on every rank: the
+        evaluation is sharded over them).  Over a mesh, ``train_iter``
+        yields this rank's samples (``shard_batch``)."""
         cfg = self.cfg.train
         total = max_steps or cfg.steps
         t_last = time.time()
@@ -123,7 +163,7 @@ class Trainer:
                       step_i <= self.cfg.loss.warmup_steps)
             state, metrics = train_step(
                 state, batch, self.cfg, self.optimizer, warmup=warmup,
-                self_supervised=self.self_supervised)
+                self_supervised=self.self_supervised, mesh=self.mesh)
             step_i += 1
             if step_i % cfg.display_step == 0 or step_i <= 1:
                 row = {k: float(v) for k, v in metrics.items()}
@@ -133,11 +173,15 @@ class Trainer:
                 self.history.append((step_i, row))
                 self.logger.log_metrics(row, step_i)
             if step_i % cfg.steps_per_eval == 0:
-                self.ckpt.save(step_i, state)
+                self._save(step_i, state)
                 if eval_hook is not None:
                     eval_hook(self, state, step_i)
             elif (cfg.checkpoint_interval and
                   step_i % cfg.checkpoint_interval == 0):
-                self.ckpt.save(step_i, state)
-        self.ckpt.save(state.step, state)
+                self._save(step_i, state)
+        self._save(state.step, state)
         return state
+
+    def _save(self, step: int, state: TrainState):
+        if self.rank0:
+            self.ckpt.save(step, state)

@@ -1,13 +1,20 @@
-"""One train step and one eval step on one card (counterparts of
+"""The train step and the eval step (counterparts of
 ``rslo_tpu/train/step.py::make_train_step`` and ``make_eval_step``).
 
 The batch holds raw padded points; voxelization runs on the device
 inside the step.  The warmup phase (identity-R consistency and the
 longer inner ICP) is the caller's host-side choice, as in the JAX
-package.  Cross-card gradient and statistics averaging is not ported.
+package.  Given a data mesh of several ranks, the train step is JAX's
+data-parallel ``shard_map`` step: each rank runs its own sample's
+forward and backward with the "data" axis bound (so the sync BNs pool
+their statistics), then every gradient and loss term is averaged over
+the ranks, every rank applies the same update, and the BN running
+statistics are averaged.  The eval step needs no collective: eval-mode
+BN reads the running statistics.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -15,6 +22,8 @@ import torch
 from ..config.schema import PipelineCfg
 from ..data.prepare import mean_vfe_ok, prepare_example, voxelizer_config
 from ..losses.objective import compute_objective
+from ..utils.mesh_axis import bind_axis
+from .distributed import pmean_
 from .state import TrainState
 
 
@@ -57,18 +66,33 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                cfg: PipelineCfg, optimizer, *, warmup: bool,
-               self_supervised: bool = True):
+               self_supervised: bool = True, mesh=None):
     """One step: ``loss_and_grads`` then the optimizer update.  Updates
     ``state`` in place and returns it with the metrics: the objective's
     aux terms, ``grad_norm`` and the alphas before the update
-    (``alpha_<key>``)."""
-    out, grads = loss_and_grads(state, batch, cfg, warmup=warmup,
-                                self_supervised=self_supervised)
+    (``alpha_<key>``).  With ``mesh`` (``train/distributed.py::DataMesh``)
+    of a process group, the data-parallel step: ``batch`` is this
+    rank's sample; gradients and aux terms are averaged over the ranks
+    before the update (``grad_norm`` is the averaged gradients'), the BN
+    running statistics after it."""
+    group = mesh.group if mesh is not None else None
+    ctx = (bind_axis("data", group, mesh.size) if group is not None
+           else contextlib.nullcontext())
+    with ctx:
+        out, grads = loss_and_grads(state, batch, cfg, warmup=warmup,
+                                    self_supervised=self_supervised)
     metrics = dict(out.aux)
+    if group is not None:
+        metrics = {k: v.clone() for k, v in metrics.items()}
+        pmean_(list(grads.values()) + list(metrics.values()), mesh)
     metrics.update({f"alpha_{k}": v.detach().clone()
                     for k, v in state.alphas.items()})
     metrics["grad_norm"] = optimizer.step(state.trainable(), grads,
                                           state.opt_state)
+    if group is not None:
+        with torch.no_grad():
+            pmean_([b for b in state.model.buffers()
+                    if b.is_floating_point()], mesh)
     state.step += 1
     return state, metrics
 

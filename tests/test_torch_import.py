@@ -36,8 +36,10 @@ def test_port_modules_import_without_jax():
     # matmul precision policy (ops/precision.py), and the data build
     # (utils/world.py, data/normals.py) with the VFEs (models/vfe.py),
     # and the rest of the model layer: attention, layers, the semi-global
-    # BN, the spatial-grouped norm, the learned VFE and the dense middle
-    assert int(n) >= 65, out.stdout
+    # BN, the spatial-grouped norm, the learned VFE and the dense middle,
+    # and the data-parallel modules (utils/mesh_axis.py,
+    # train/distributed.py, pgo/sharded.py)
+    assert int(n) >= 68, out.stdout
     assert leaked.strip() == "[]", out.stdout
 
 
@@ -174,3 +176,34 @@ def test_data_build_modules_import_without_jax():
         assert out.stdout.strip() == "[]", (name, out.stdout)
         path = os.path.join(REPO, *name.split(".")) + ".py"
         assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}
+
+
+_DATA_PARALLEL_MODULES = ("rslo_tpu_torch.utils.mesh_axis",
+                          "rslo_tpu_torch.train.distributed",
+                          "rslo_tpu_torch.pgo.sharded",
+                          "rslo_tpu_torch.train.step",
+                          "rslo_tpu_torch.pgo.ba",
+                          "torch_dist_workers")
+
+
+def test_data_parallel_modules_import_without_jax():
+    """The data-parallel modules and the rank processes' module of the
+    tests (tests/torch_dist_workers.py: the spawned ranks load it and
+    must not load JAX), in one fresh process: no jax, flax, rslo_tpu,
+    h5py or matplotlib loaded, and no import statement of theirs names
+    jax, flax or rslo_tpu."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]))
+    code = (f"import sys, {', '.join(_DATA_PARALLEL_MODULES)}; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"('jax', 'flax', 'rslo_tpu', 'h5py', 'matplotlib')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for name in _DATA_PARALLEL_MODULES:
+        path = (os.path.join(REPO, "tests", name + ".py")
+                if "." not in name else
+                os.path.join(REPO, *name.split(".")) + ".py")
+        assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}, \
+            name
