@@ -18,9 +18,11 @@ fusion, bundle adjustment, loop closing) through the evaluate verb, and
 each refinement solver on the card against the CPU; last, the data
 build from a rendered world with the hier-cloud and cross-normal
 training it feeds and loop closing on a true revisit; every BEV-net
-option of the schema, with DenseMiddleCov; and data-parallel training
+option of the schema, with DenseMiddleCov; data-parallel training
 and evaluation: the train verb on an NCCL group, and two ranks sharing
-the card over gloo.  Phases (each one exits non-zero when it fails):
+the card over gloo; the BEV stage split over four ranks sharing the
+card (spatial, tensor and both), the ``bench`` verb, and the small
+modules only tests reach.  Phases (each one exits non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -199,6 +201,20 @@ the card over gloo.  Phases (each one exits non-zero when it fails):
      config, 2 data-parallel steps on the card against the same on the
      CPU; each path's ms a step per rank and peak memory (the gloo
      numbers host-staged)
+ 24. the BEV stage split over ranks (``split_phases``): four ranks on
+     the card over gloo (``split_rank``, started after the build and
+     loading it) form a 4 x 1 and a 2 x 2 grid and run the two-frame
+     forward of phase 4's seeded weights and scans at
+     ``configs/kitti_eval_ours.json`` (bf16) and its float32 twin: (a)
+     SP over 2 ranks (176 columns, 88/88), (b) TP over 2, (c) SP x TP
+     over 2 x 2, (d) SP over 4 (48/48/40/40); every map and the
+     odometry against this process's unsplit forward within
+     SPLIT_REL_TOL of each one's largest value, each rank's launches
+     those of the unsplit forward, ms a forward per rank (host-staged);
+     (e) the ``bench`` verb with RSLO_BENCH_STREAMING=1: its JSON line
+     (the JAX bench's keys), finite rates, its B1 launches; (f)
+     ``voxelize_mean`` on a 100k-point scan, ``mean_shift`` on 3000
+     points and ``SectionTimer`` on card tensors, card against CPU
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -220,7 +236,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-23 beside them) and the result (JSON); the card's
+of phases 14-24 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -2820,11 +2836,7 @@ def dp_rank(spec_path):
     from rslo_tpu_torch.config.schema import PipelineCfg
     from rslo_tpu_torch.eval.runner import run_eval
     from rslo_tpu_torch.models.net import OdomNet
-    from rslo_tpu_torch.ops import _build, band_conv as bc
-    from rslo_tpu_torch.ops.chamfer import nn_search
-    from rslo_tpu_torch.ops.dma_gather import (gather_matmul,
-                                               gather_matmul_dgrad,
-                                               row_gather)
+    from rslo_tpu_torch.ops import _build
     from rslo_tpu_torch.pgo.ba import BAProblem, solve_ba_sharded
     from rslo_tpu_torch.pgo.sharded import fuse_windows_sharded
     from rslo_tpu_torch.train import loop as train_loop
@@ -2841,21 +2853,7 @@ def dp_rank(spec_path):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_num_threads(4)
-    build = _build.build
-
-    def built_only(name):
-        if not _build.library_path(name).exists():
-            raise RuntimeError(f"rank {rank}: {name} is not built; the "
-                               f"ranks load the parent's build")
-        return build(name)
-
-    _build.build = built_only
-    counted = {"gather_matmul": gather_matmul,
-               "gather_matmul_dgrad": gather_matmul_dgrad,
-               "row_gather": row_gather, "nn_search": nn_search,
-               "band_matmul": bc.band_matmul,
-               "band_matmul_dgrad": bc.band_matmul_dgrad,
-               "band_gather": bc.band_gather}
+    counted = rank_kernels(_build, rank)
 
     def counts():
         return {k: fn.launches for k, fn in counted.items()}
@@ -2962,16 +2960,17 @@ def dp_rank(spec_path):
     torch.save(out, spec["out"])
 
 
-def run_dp_ranks(specs, torch):
-    """Start one process a spec (``dp_rank``), wait for all (DP_TIMEOUT_S)
-    and return their results; a rank that fails or hangs fails the run,
-    and every rank is stopped first."""
+def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23"):
+    """Start one process a spec (``entry``: ``dp_rank`` or
+    ``split_rank``), wait for all (DP_TIMEOUT_S) and return their
+    results; a rank that fails or hangs fails the run, and every rank is
+    stopped first."""
     procs = []
     for spec in specs:
         path = spec["out"] + ".spec"
         torch.save(spec, path)
         code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
-                "chip_smoke.dp_rank(%r)" % (REPO, path))
+                "chip_smoke.%s(%r)" % (REPO, entry, path))
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True))
@@ -2980,7 +2979,7 @@ def run_dp_ranks(specs, torch):
         for p in procs:
             logs.append(p.communicate(timeout=DP_TIMEOUT_S)[0])
     except subprocess.TimeoutExpired:
-        fail(f"phase 23: the ranks did not finish within {DP_TIMEOUT_S} s")
+        fail(f"{phase}: the ranks did not finish within {DP_TIMEOUT_S} s")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -2988,7 +2987,7 @@ def run_dp_ranks(specs, torch):
                 p.wait()
     for p, log, spec in zip(procs, logs, specs):
         if p.returncode != 0:
-            fail(f"phase 23: rank {spec['rank']} exited {p.returncode}:\n"
+            fail(f"{phase}: rank {spec['rank']} exited {p.returncode}:\n"
                  f"{log[-4000:]}")
     return [torch.load(s["out"], weights_only=False) for s in specs]
 
@@ -3320,6 +3319,382 @@ def data_parallel_phases(tcfg, batches, history, rb_ops, cli, Trainer,
             "dp_fit_gloo_launches": ranks[0]["fit"]["launches"]}
 
 
+# -- phase 24: the BEV stage split over ranks; the bench; small modules -----
+
+SPLIT_DIR = os.path.join(REPO, "build", "smoke_split")
+SPLIT_RANKS = 4
+# (name, grid (space, model), the split axes): SP over 2 (the 2 x 2
+# grid's columns), TP over 2 (its rows), SP x TP over 2 x 2, and SP over
+# 4 on the shipped 176 columns' uneven 48/48/40/40
+SPLIT_LAYOUTS = (("sp2", (2, 2), ("space",)), ("tp2", (2, 2), ("model",)),
+                 ("sptp", (2, 2), ("space", "model")),
+                 ("sp4", (4, 1), ("space",)))
+SPLIT_TIMED = 3            # timed forwards a layout, after the checked one
+SPLIT_KEYS = ("odometry", "tq_map", "t_conf", "q_conf", "input_mask")
+# each map's max |split - one process| over its max |one process|: cuDNN
+# may pick other algorithms at a rank's width, which moves the rounding;
+# in bf16 a flipped rounding (2^-8) passes through ~30 conv layers, in
+# f32 (TF32 off) one of 2^-24
+SPLIT_REL_TOL = {"bf16": 2.0 ** -5, "f32": 1e-4}
+# what the bf16 bound must see: the SP4 forward with every rank padding
+# its own edges (the split without halos), read by its worst map
+NO_HALO = "sp4 without halos"
+# the bench verb's B1 launches (rulebook, the schema's default engine):
+# bench_middle's first forward and its two chains of 16 (2 frames, 14
+# convs without the covariance decoder), bench_streaming's 1 + 4 streams
+# of 9 frames; the pillar stages launch none
+BENCH_B1 = ENCODER_CONVS * (2 * (1 + 2 * 16) + (1 + 4) * 9)
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "middle",
+              "sparse_fps", "sparse_engine", "streaming_fps",
+              "sparse_streaming_fps"}
+VOX_MEAN_TOL = dict(rtol=1e-5, atol=1e-4)   # CUDA's index_add_ order
+MEANSHIFT_POINTS = 3000
+MEANSHIFT_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def kernel_wrappers():
+    """The port's counted kernel wrappers by name (each counts its
+    launches in ``.launches``)."""
+    from rslo_tpu_torch.ops import band_conv as bc
+    from rslo_tpu_torch.ops.chamfer import nn_search
+    from rslo_tpu_torch.ops.dma_gather import (gather_matmul,
+                                               gather_matmul_dgrad,
+                                               row_gather)
+    return {"gather_matmul": gather_matmul,
+            "gather_matmul_dgrad": gather_matmul_dgrad,
+            "row_gather": row_gather, "nn_search": nn_search,
+            "band_matmul": bc.band_matmul,
+            "band_matmul_dgrad": bc.band_matmul_dgrad,
+            "band_gather": bc.band_gather}
+
+
+def rank_kernels(_build, rank):
+    """In a rank process: ``kernel_wrappers()``, with ``_build.build``
+    made to load the parent's build and refuse to compile."""
+    build = _build.build
+
+    def built_only(name):
+        if not _build.library_path(name).exists():
+            raise RuntimeError(f"rank {rank}: {name} is not built; the "
+                               f"ranks load the parent's build")
+        return build(name)
+
+    _build.build = built_only
+    return kernel_wrappers()
+
+
+def split_rank(spec_path):
+    """One rank of phase 24a-d, in its own process: joins the gloo group
+    on the card, forms the 4 x 1 and 2 x 2 grids, and runs each layout
+    of SPLIT_LAYOUTS in each precision: one forward with the launch
+    counts set to 0 just before and read just after, then SPLIT_TIMED
+    forwards on the host clock (see ``split_phases``)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from rslo_tpu_torch.config.schema import PipelineCfg
+    from rslo_tpu_torch.models.net import OdomNet
+    from rslo_tpu_torch.ops import _build
+    from rslo_tpu_torch.parallel.spatial import make_spatial_forward
+    from rslo_tpu_torch.parallel.tensor import (make_model_forward,
+                                                make_spatial_model_forward)
+    from rslo_tpu_torch.train.distributed import initialize_multihost
+    from rslo_tpu_torch.utils.mesh_axis import grid_mesh
+
+    spec = torch.load(spec_path, weights_only=False)
+    rank, dev = spec["rank"], torch.device(spec["device"])
+    if dev.type != "cuda":      # a rehearsal of this phase on the CPU
+        torch.cuda.synchronize = lambda *a: None
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_num_threads(2)
+    counted = rank_kernels(_build, rank)
+    makers = {("space",): make_spatial_forward,
+              ("model",): make_model_forward,
+              ("space", "model"): make_spatial_model_forward}
+    initialize_multihost(spec["rdv"], spec["world"], rank, device=dev,
+                         backend=spec["backend"])
+    out = {}
+    try:
+        grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2)}
+        state = torch.load(spec["state"], weights_only=False)
+        ex = {k: v.to(dev) for k, v in
+              torch.load(spec["example"], weights_only=False).items()}
+        for prec, cfg_json in spec["configs"].items():
+            net = OdomNet(PipelineCfg.from_json(cfg_json)).to(dev)
+            net.load_state_dict(state)
+            for name, grid, axes in SPLIT_LAYOUTS:
+                fwd = makers[axes](net, grids[grid])
+                for fn in counted.values():
+                    fn.launches = 0
+                with torch.no_grad():
+                    preds = fwd(ex)
+                torch.cuda.synchronize()
+                launches = {k: fn.launches for k, fn in counted.items()}
+                ms = []
+                for _ in range(SPLIT_TIMED):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with torch.no_grad():
+                        fwd(ex)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                out[prec, name] = dict(
+                    maps={k: preds[k].float().cpu().numpy()
+                          for k in SPLIT_KEYS},
+                    pyramid=[(a.float().cpu().numpy(),
+                              b.float().cpu().numpy())
+                             for a, b in preds["pyramid"]],
+                    launches=launches, ms=ms)
+            if prec == "bf16":
+                out[prec, NO_HALO] = own_edges_forward(
+                    makers[("space",)](net, grids[(4, 1)]), ex, torch)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, spec["out"])
+
+
+def own_edges_forward(fwd, ex, torch):
+    """``fwd(ex)``'s maps with ``parallel/spatial.py::halo_pad`` made to
+    pad each rank's own edges, as if it held the whole map."""
+    import torch.nn.functional as F
+    from rslo_tpu_torch.parallel import spatial
+    halo = spatial.halo_pad
+    spatial.halo_pad = lambda x, widths, left, right, value: F.pad(
+        x, (left, right), value=value)
+    try:
+        with torch.no_grad():
+            preds = fwd(ex)
+    finally:
+        spatial.halo_pad = halo
+    return {k: preds[k].float().cpu().numpy() for k in SPLIT_KEYS}
+
+
+def split_forward_phases(cfg, example, reset_counts, counts, dev, smi_line,
+                         np, torch, backend="gloo", rank_devices=None):
+    """Phase 24a-d: the BEV stage split over SPLIT_RANKS ranks
+    (``split_rank``, started after the build, loading it): by default
+    over gloo, every rank on ``dev`` (the one card, shared); with
+    ``backend="nccl"`` and ``rank_devices`` a card each
+    (``scripts/torch_split_cards.py``).  At ``cfg`` (bf16) and its
+    float32 twin, with phase 4's seeded weights and ``example`` (two
+    scans), each layout's maps and odometry against this process's
+    unsplit forward on ``dev`` (SPLIT_REL_TOL) and each rank's launches
+    against that forward's; ms a forward per rank.  Returns rank 0's
+    bf16 launches of each layout."""
+    from rslo_tpu_torch.models.net import OdomNet
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    os.makedirs(SPLIT_DIR)
+    gen = torch.Generator().manual_seed(SEED)
+    net = OdomNet(cfg, gen)
+    randomize_bn(net, gen)
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    cfg32 = cfg.replace(
+        middle=dataclasses.replace(cfg.middle, conv_dtype="f32"),
+        odom=dataclasses.replace(cfg.odom, compute_dtype="fp32"))
+    configs = {"bf16": cfg, "f32": cfg32}
+    refs, ref_ms, ref_launches = {}, {}, {}
+    for prec, c in configs.items():
+        model = OdomNet(c).to(dev)
+        model.load_state_dict(state)
+        reset_counts()
+        with torch.no_grad():
+            preds = model(example)
+        torch.cuda.synchronize()
+        ref_launches[prec] = counts()
+        refs[prec] = {k: preds[k].float().cpu().numpy() for k in SPLIT_KEYS}
+        refs[prec]["pyramid"] = [(a.float().cpu().numpy(),
+                                  b.float().cpu().numpy())
+                                 for a, b in preds["pyramid"]]
+        with torch.no_grad():
+            ref_ms[prec] = median_ms(lambda: model(example), SPLIT_TIMED,
+                                     torch)
+        del model
+    torch.save(state, os.path.join(SPLIT_DIR, "state.pt"))
+    torch.save({k: v.cpu() for k, v in example.items()},
+               os.path.join(SPLIT_DIR, "example.pt"))
+    rdv = f"file://{os.path.join(SPLIT_DIR, 'rendezvous')}"
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks([dict(
+        rank=r, world=SPLIT_RANKS, rdv=rdv, backend=backend,
+        device=str(rank_devices[r] if rank_devices else dev),
+        state=os.path.join(SPLIT_DIR, "state.pt"),
+        example=os.path.join(SPLIT_DIR, "example.pt"),
+        configs={p: c.to_json() for p, c in configs.items()},
+        out=os.path.join(SPLIT_DIR, f"rank{r}.pt"))
+        for r in range(SPLIT_RANKS)], torch, entry="split_rank",
+        phase="phase 24")
+    where = (f"{backend} ranks, a card each" if rank_devices else
+             f"{backend} ranks on the one card")
+    staged = ("host-staged, " if backend == "gloo" else "") + (
+        "a card a rank" if rank_devices else
+        f"{SPLIT_RANKS} ranks sharing the card")
+    say(f"[split] {SPLIT_RANKS} {where}: {time.perf_counter() - t0:.1f} s, "
+        f"process start and library loads included")
+    launches = {}
+    for prec in configs:
+        H, W = refs[prec]["tq_map"].shape[1:3]
+        say(f"[split] {prec}: the unsplit forward {ref_ms[prec]:.3f} ms "
+            f"(median of {SPLIT_TIMED}, this process alone on {dev}, "
+            f"host clock), BEV {H} x {W}, launches {ref_launches[prec]}")
+        for name, grid, axes in SPLIT_LAYOUTS:
+            worst = {}
+            for r, res in enumerate(ranks):
+                got = res[prec, name]
+                if got["launches"] != ref_launches[prec]:
+                    fail(f"24 {prec} {name} rank {r}: launches "
+                         f"{got['launches']}, the unsplit forward's "
+                         f"{ref_launches[prec]}")
+                pairs = [(k, got["maps"][k], refs[prec][k])
+                         for k in SPLIT_KEYS] + [
+                    (f"pyramid{i}{j}", g[j], w[j]) for i, (g, w) in
+                    enumerate(zip(got["pyramid"], refs[prec]["pyramid"]))
+                    for j in (0, 1)]
+                for k, g, w in pairs:
+                    if g.shape != w.shape:
+                        fail(f"24 {prec} {name} rank {r}: {k} shape "
+                             f"{g.shape}, unsplit {w.shape}")
+                    rel = float(np.abs(g - w).max()) / max(
+                        float(np.abs(w).max()), 1e-30)
+                    worst[k] = max(worst.get(k, 0.0), rel)
+                    if not rel <= SPLIT_REL_TOL[prec]:
+                        fail(f"24 {prec} {name} rank {r}: {k} off the "
+                             f"unsplit forward by {rel:.3e} of its largest "
+                             f"value (> {SPLIT_REL_TOL[prec]:g})")
+            ms = ", ".join(f"{statistics.median(res[prec, name]['ms']):.3f}"
+                           for res in ranks)
+            maps = ", ".join(f"{k} {v:.2e}" for k, v in worst.items()
+                             if not k.startswith("pyramid"))
+            pyr = max(v for k, v in worst.items() if k.startswith("pyramid"))
+            say(f"[split] {prec} {name} (grid {grid[0]} x {grid[1]}, axes "
+                f"{'+'.join(axes)}): per rank {ms} ms a forward (median of "
+                f"{SPLIT_TIMED}, host clock, {backend}, {staged}); max "
+                f"|diff| / max |unsplit|: {maps}, pyramid {pyr:.2e} (held "
+                f"to {SPLIT_REL_TOL[prec]:g}); {smi_line}")
+            if prec == "bf16":
+                launches[f"split_{name}_launches"] = \
+                    ranks[0][prec, name]["launches"]
+    rel = {k: max(float(np.abs(res["bf16", NO_HALO][k] - w).max())
+                  for res in ranks) / max(float(np.abs(w).max()), 1e-30)
+           for k, w in ((k, refs["bf16"][k]) for k in SPLIT_KEYS)}
+    say(f"[split] bf16 {NO_HALO}: max |diff| / max |unsplit| "
+        + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+        + f" (the bound {SPLIT_REL_TOL['bf16']:g} must sit below the "
+          f"largest)")
+    if not max(rel.values()) > SPLIT_REL_TOL["bf16"]:
+        fail(f"24 bf16: the split without halos stays within the bound "
+             f"{SPLIT_REL_TOL['bf16']:g} of the unsplit forward, which "
+             f"therefore cannot see a broken halo")
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    return launches
+
+
+def split_phases(cfg, example, bench_main, counted, reset_counts, counts,
+                 dev, smi_line, np, torch, vox_points, bench_b1=BENCH_B1):
+    """Phase 24.  (a-d) ``split_forward_phases`` over gloo ranks sharing
+    the card.  (e) ``bench_main`` (the ``bench`` verb) with
+    RSLO_BENCH_STREAMING=1: its JSON line, its keys and its B1 launches
+    (``bench_b1``).  (f) ``voxelize_mean`` on ``vox_points``,
+    ``mean_shift`` at MEANSHIFT_POINTS points and ``SectionTimer`` on
+    the card's tensors, each against the CPU.  Returns the launches of
+    each path."""
+    import io
+    from rslo_tpu_torch.data.prepare import voxelizer_config
+    from rslo_tpu_torch.geometry.meanshift import label_modes, mean_shift
+    from rslo_tpu_torch.ops.voxelize import voxelize_mean
+    from rslo_tpu_torch.utils.timing import SectionTimer
+    launches = split_forward_phases(cfg, example, reset_counts, counts, dev,
+                                    smi_line, np, torch)
+
+    # -- 24e. the bench verb, streaming included ---------------------------
+    saved = os.environ.get("RSLO_BENCH_STREAMING")
+    os.environ["RSLO_BENCH_STREAMING"] = "1"
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            bench_main()
+    finally:
+        if saved is None:
+            os.environ.pop("RSLO_BENCH_STREAMING")
+        else:
+            os.environ["RSLO_BENCH_STREAMING"] = saved
+    torch.cuda.synchronize()
+    bench_launches = counts()
+    line = buf.getvalue().strip().splitlines()[-1]
+    say(f"[bench] {smi_line} | {line}")
+    say(f"[bench] the bench verb in {time.perf_counter() - t0:.1f} s, "
+        f"launches {bench_launches}; {smi_line}")
+    rec = json.loads(line)
+    if set(rec) != BENCH_KEYS:
+        fail(f"24e: the bench's keys {sorted(rec)}, expected "
+             f"{sorted(BENCH_KEYS)}")
+    if not all(math.isfinite(rec[k]) and rec[k] > 0 for k in
+               ("value", "sparse_fps", "streaming_fps",
+                "sparse_streaming_fps")):
+        fail(f"24e: the bench's rates are not finite and positive: {rec}")
+    want = dict.fromkeys(counted, 0)
+    want["gather_matmul"] = bench_b1
+    if bench_launches != want:
+        fail(f"24e: the bench launched {bench_launches}, expected {want}")
+    launches["bench_launches"] = bench_launches
+
+    # -- 24f. voxelize_mean, mean_shift and SectionTimer, card vs CPU ------
+    vcfg = voxelizer_config(cfg)
+    pts = torch.as_tensor(vox_points)
+    mask = torch.ones(len(pts), dtype=torch.bool)
+    reset_counts()
+    vc = voxelize_mean(pts.to(dev), mask.to(dev), vcfg)
+    vox_us = event_us(lambda: voxelize_mean(pts.to(dev), mask.to(dev), vcfg),
+                      10, torch)
+    vh = voxelize_mean(pts, mask, vcfg)
+    for k in ("coords", "num_points", "num_voxels", "point_voxel"):
+        if not torch.equal(getattr(vc, k).cpu(), getattr(vh, k)):
+            fail(f"24f: voxelize_mean's {k} differs card vs CPU")
+    fd = float((vc.features.cpu() - vh.features).abs().max())
+    if not np.allclose(vc.features.cpu().numpy(), vh.features.numpy(),
+                       **VOX_MEAN_TOL):
+        fail(f"24f: voxelize_mean's means differ card vs CPU by {fd:.3e}")
+    say(f"[a6] voxelize_mean, {len(pts)} points, {int(vh.num_voxels)} "
+        f"voxels: integers bit-equal card vs CPU, means max |diff| "
+        f"{fd:.3e} (held to {VOX_MEAN_TOL}); {vox_us:.1f} us a call on the "
+        f"card (CUDA events, host copies included); {smi_line}")
+    rng = np.random.default_rng(SEED)
+    centres = rng.uniform(-20, 20, size=(6, 3))
+    blob = (centres[rng.integers(0, 6, MEANSHIFT_POINTS)] +
+            0.5 * rng.normal(size=(MEANSHIFT_POINTS, 3))).astype(np.float32)
+    conf = rng.uniform(0.2, 1.0, MEANSHIFT_POINTS).astype(np.float32)
+    bt, ct = torch.as_tensor(blob), torch.as_tensor(conf)
+    mh = mean_shift(bt, ct, bandwidth=1.5, iters=10)
+    md = mean_shift(bt.to(dev), ct.to(dev), bandwidth=1.5, iters=10)
+    ms_us = event_us(lambda: mean_shift(bt.to(dev), ct.to(dev),
+                                        bandwidth=1.5, iters=10), 5, torch)
+    d = float((md.cpu() - mh).abs().max())
+    same = torch.equal(label_modes(md, 0.5).cpu(), label_modes(mh, 0.5))
+    if not np.allclose(md.cpu().numpy(), mh.numpy(), **MEANSHIFT_TOL) \
+            or not same:
+        fail(f"24f: mean_shift card vs CPU: modes max |diff| {d:.3e}, "
+             f"labels equal {same}")
+    say(f"[a6] mean_shift, {MEANSHIFT_POINTS} points, 10 iterations, "
+        f"weighted: modes max |diff| card vs CPU {d:.3e} (held to "
+        f"{MEANSHIFT_TOL}), labels equal; {ms_us:.1f} us a call on the card "
+        f"(CUDA events); {smi_line}")
+    timer = SectionTimer()
+    a = torch.ones(2048, 2048, device=dev)
+    for _ in range(3):
+        with timer.section("matmul", sync_value={"out": [a]}):
+            a = a @ a * (1.0 / 2048)
+    if dict(timer.count) != {"matmul": 3} or not timer.avg_ms()["matmul"] > 0:
+        fail(f"24f: SectionTimer counted {dict(timer.count)}, "
+             f"{timer.avg_ms()}")
+    say(f"[a6] SectionTimer on card tensors: {timer.report()} (3 sections, "
+        f"each synchronized on its value's device)")
+    if counts() != dict.fromkeys(counted, 0):
+        fail(f"24f: a kernel of B1-B5 launched: {counts()}")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose kernels are timed "
@@ -3350,12 +3725,7 @@ def main():
     from rslo_tpu_torch.train.step import loss_and_grads, train_step
     from rslo_tpu_torch.utils.synthetic import synth_sequence
     dev = torch.device("cuda", 0)
-    counted = {"gather_matmul": gather_matmul,
-               "gather_matmul_dgrad": gather_matmul_dgrad,
-               "row_gather": row_gather, "nn_search": nn_search,
-               "band_matmul": bc.band_matmul,
-               "band_matmul_dgrad": bc.band_matmul_dgrad,
-               "band_gather": bc.band_gather}
+    counted = kernel_wrappers()
 
     def reset_counts():
         for fn in counted.values():
@@ -4532,6 +4902,15 @@ def main():
                                      cli, Trainer, counted, reset_counts,
                                      counts, dev, smi_line, np, torch))
 
+    # -- 24. the BEV stage split over ranks; the bench; small modules ------
+    pair = torch.as_tensor(np.stack(frames[:2]), device=dev)
+    more.update(split_phases(
+        cfg, prepare_example(pair, torch.ones(pair.shape[:2], dtype=bool,
+                                              device=dev),
+                             vcfg, mean_mode=True),
+        lambda: cli.main(["bench"]), counted, reset_counts, counts, dev,
+        smi_line, np, torch, frames[0]))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -4555,7 +4934,9 @@ def main():
                      # rendered loop; phase 22's train verb, evaluate verb
                      # and streaming of each BEV-net option run;
                      # phase 23's train verb on NCCL at world size 1
-                     # and rank 0's Trainer.fit over the gloo ranks
+                     # and rank 0's Trainer.fit over the gloo ranks;
+                     # phase 24's split forwards (rank 0's, bf16) and
+                     # the bench verb
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -10,16 +10,20 @@ there, even a pure-Python one, it keeps as its own copy (``config``,
 and matplotlib are imported only where a store is opened or a plot
 drawn.
 
-Ported so far (the streaming odometry path and the evaluation under the
-shipped ``configs/kitti_eval_ours.json`` and the self-supervised train
-step under ``configs/kitti_train_ours.json``, on the rulebook and the
-band sparse-conv engines):
+What it has (everything the JAX package does, apart from three modules
+left out by decision: ``config/registry.py``, whose place the ``VFES``
+dict and ``OdomNet``'s dispatch take, ``utils/jax_cache.py``, XLA's
+compile cache, and ``ops/tiled_conv.py`` with ``engine="tiles"``):
   config            — the pipeline's configuration schema
-  utils             — numpy synthetic LiDAR scans, the metric logger
-                      and its TensorBoard event writer
-  geometry          — quaternion, tq-map and weighted-Kabsch helpers;
-                      numpy pose helpers (transforms)
-  ops.voxelize      — sort-based mean voxelizer
+  utils             — synthetic LiDAR scans and the raycast world, the
+                      metric logger and its TensorBoard event writer,
+                      the mesh axes ("data", "space", "model") and their
+                      collectives, parameter surgery, the section timer
+                      and profiler trace
+  geometry          — quaternions, tq maps, weighted Kabsch, warps,
+                      mean shift; numpy pose helpers (transforms)
+  ops.voxelize      — the point-stack voxelizer (ground filter), the
+                      sorted and sort-free mean paths, the numpy oracle
   ops.sparse_conv   — sorted levels + slot-map rulebooks (and their
                       transposes), plain conv apply and its gradient
   ops.dma_gather    — the hand-written Hopper kernels of the sparse conv
@@ -28,15 +32,26 @@ band sparse-conv engines):
   ops.band_conv     — banded window plans and the band engine's conv
                       (csrc/band_conv.cu) with its gradient
   ops.chamfer       — the chamfer NN search (csrc/nn_search.cu)
-  data              — mean-mode example preparation; KITTI parsing, the
-                      HDF5 store's reader, window datasets, collation
-  models            — SparseMiddleCov (rulebook, band), BEVOdomNet, OdomNet,
-                      eval and train mode
+  data              — example preparation, KITTI parsing, the HDF5
+                      store (build and read), normals (native build),
+                      window datasets, augmentation, the train loader
+  models            — SparseMiddleCov (rulebook, band), PillarMiddleCov,
+                      DenseMiddleCov, the VFEs, BEVOdomNet with every
+                      option of the schema, OdomNet; eval and train mode
+  parallel          — spatial and tensor parallelism of the BEV stage
+                      over a (space x model) grid of ranks
   losses            — adaptive L2, consistency/ICP, the whole objective
-  train             — OneCycle AdamW, train state, train and eval
-                      steps, checkpoints, single-card Trainer
-  eval              — StreamingOdometry, run_eval, KITTI metrics, plots
-  cli               — ``python -m rslo_tpu_torch.cli evaluate``
+                      (hier clouds, cross normals)
+  train             — OneCycle AdamW and the other schedules, train
+                      state, train and eval steps, checkpoints, the
+                      Trainer, one card or data-parallel over many
+  eval              — StreamingOdometry, run_eval and the refined
+                      runner, KITTI metrics, plots
+  pgo               — pose graph, windowed refinement, bundle adjustment
+                      (and sharded), loop closing, sharded fusion
+  bench             — the two-frame and streaming throughput bench
+  cli               — ``python -m rslo_tpu_torch.cli create_hdf5 | train
+                      | evaluate | bench``
   convert           — flax variables <-> torch names and layouts
 """
 

@@ -1,10 +1,11 @@
 """Command-line entry points of the port (counterpart of
-``rslo_tpu/cli.py``; the ``create_hdf5``, ``train`` and ``evaluate``
-verbs):
+``rslo_tpu/cli.py``; the ``create_hdf5``, ``train``, ``evaluate`` and
+``bench`` verbs):
 
     python -m rslo_tpu_torch.cli create_hdf5 --kitti_root KITTI --out all.h5
     python -m rslo_tpu_torch.cli train --config cfg.json --model_dir runs/x
     python -m rslo_tpu_torch.cli evaluate --config cfg.json --model_dir runs/x
+    python -m rslo_tpu_torch.cli bench
 
 ``create_hdf5`` builds the HDF5 store from a raw KITTI odometry tree on
 the host (normals by the native ``native/prep.cpp`` build).
@@ -16,10 +17,13 @@ seeded initial weights where there is none) on the val split, writes
 ``eval_results.json`` into the model dir and prints it; ``--refine``,
 ``--refine_ba`` and ``--refine_loops`` evaluate 3-frame windows fused
 by the pose graph (with bundle adjustment, with loop closing).
-``--synthetic`` swaps the KITTI store for the generated scene.  Both
-run on the CUDA card unless ``--device cpu`` is given, and both run
-data-parallel over every process of a ``torchrun`` or SLURM launch (one
-process per card; ``train/distributed.py``):
+``--synthetic`` swaps the KITTI store for the generated scene.
+``bench`` prints the JSON line of ``rslo_tpu_torch/bench.py`` (the
+root ``bench.py``'s keys, measured on the port).  ``train``,
+``evaluate`` and ``bench`` run on the CUDA card unless ``--device cpu``
+is given, and ``train`` and ``evaluate`` run data-parallel over every
+process of a ``torchrun`` or SLURM launch (one process per card;
+``train/distributed.py``):
 
     torchrun --nproc_per_node 8 -m rslo_tpu_torch.cli train --config cfg.json --model_dir runs/x
 """
@@ -331,6 +335,11 @@ def cmd_evaluate(args) -> dict:
     return results
 
 
+def cmd_bench(args):
+    from .bench import main as bench_main
+    return bench_main(device=args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="rslo_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -392,6 +401,11 @@ def main(argv=None):
     e.add_argument("--loop_score_threshold", type=float, default=0.8,
                    help="descriptor similarity a loop candidate needs")
     e.set_defaults(fn=cmd_evaluate)
+
+    b = sub.add_parser("bench")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to run on (default: cuda)")
+    b.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     return args.fn(args)

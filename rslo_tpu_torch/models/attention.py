@@ -6,12 +6,20 @@ against their float32 parameters, so both blocks compute their gates in
 float32 and return float32 (the gate times the input), as JAX does.
 Channel means of a bfloat16 input are summed in float32 and rounded
 back, as ``jnp.mean`` does.
+
+Under a split forward (``rslo_tpu_torch/parallel/``) the SE means sum
+over the "space" ranks and gather the channels, and the spatial gate's
+channel mean and max read every channel, its conv pads with halos.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.spatial import pad_same, space_split
+from ..parallel.tensor import (bev_mean, gather_channels, local_channels,
+                               model_split)
 
 
 def _mean(x: torch.Tensor, dim) -> torch.Tensor:
@@ -28,8 +36,10 @@ class SELayer(nn.Module):
         self.Dense_1 = nn.Linear(self.Dense_0.out_features, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = _mean(x, (2, 3))[:, :, 0, 0].float()          # (N, C)
+        s = bev_mean(x).to(x.dtype).float()               # (N, C)
         s = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(s))))
+        if model_split():
+            s = local_channels(s)
         return x * s[:, :, None, None]
 
 
@@ -46,7 +56,13 @@ class SpatialAttention(nn.Module):
         self.Conv_0 = nn.Conv2d(2, 1, kernel, padding=kernel // 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        avg = _mean(x, 1)
-        mx = torch.amax(x, dim=1, keepdim=True)
-        a = self.Conv_0(torch.cat([avg, mx], dim=1).float())
+        xs = gather_channels(x) if model_split() else x
+        g = torch.cat([_mean(xs, 1), torch.amax(xs, dim=1, keepdim=True)],
+                      dim=1).float()
+        if space_split():       # SAME padding with halos
+            k = self.Conv_0.kernel_size[0]
+            a = F.conv2d(pad_same(g, k, 1), self.Conv_0.weight,
+                         self.Conv_0.bias)
+        else:
+            a = self.Conv_0(g)
         return x * torch.sigmoid(a)

@@ -22,6 +22,15 @@ promote a bfloat16 input) goes back to bfloat16; heads without a dtype
 Submodules carry the flax auto-names of the reference (``BasicBlock_<i>``,
 ``FireBlock_<i>``, ``ConvBNRelu_<i>``, ``Conv_<i>``, ``Dense_<i>``, ...)
 so ``convert.py`` maps parameters by name.
+
+Under a split forward of ``rslo_tpu_torch/parallel/`` (from the pair
+tensor's ``bev_constraint`` on) the layers split the map: SAME pads take
+halos over the "space" axis (``parallel/spatial.py::pad_same``), convs
+gather their input channels over "model" and compute their slice of the
+output channels, the batch moments and spatial means sum over "space",
+the confidence softmax and the output maps gather along W, and the vote
+runs on the gathered maps on every rank.  Outside one, each of these
+paths is the unsplit op itself.
 """
 from __future__ import annotations
 
@@ -35,7 +44,12 @@ from ..config.schema import OdomCfg
 from ..geometry import (decode_tq_map, grid_cell_coords, hemisphere,
                         matrix_to_quat, qnormalize, rotate_vec_by_q,
                         weighted_kabsch)
-from ..utils.mesh_axis import pmean_if_present
+from ..parallel.spatial import (gather_width, global_width, local_columns,
+                                space_split)
+from ..parallel.spatial import pad_same as _pad_same
+from ..parallel.tensor import (bev_mean, channel_range, gather_channels,
+                               local_channels, model_split)
+from ..utils.mesh_axis import pmean_if_present, psum_if_present
 from .attention import SELayer, SpatialAttention
 from .middle import update_running_stats
 from .semiglobal_bn import SemiGlobalSyncBN
@@ -48,22 +62,6 @@ def identity_pose_bias(n: int = 7) -> torch.Tensor:
     return b
 
 
-def _same_pad(size: int, k: int, s: int) -> tuple[int, int]:
-    out = -(-size // s)
-    total = max((out - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-def _pad_same(x: torch.Tensor, k: int, s: int,
-              value: float = 0.0) -> torch.Tensor:
-    """Pad an NCHW tensor as flax/XLA ``padding="SAME"`` does."""
-    ph = _same_pad(x.shape[-2], k, s)
-    pw = _same_pad(x.shape[-1], k, s)
-    if ph == (0, 0) and pw == (0, 0):
-        return x
-    return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
-
-
 def max_pool_mask(mask: torch.Tensor, kernel: int,
                   stride: int) -> torch.Tensor:
     """Max-pool an (N, 1, H, W) mask with SAME padding."""
@@ -71,15 +69,50 @@ def max_pool_mask(mask: torch.Tensor, kernel: int,
                         kernel, stride)
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype=None) -> torch.Tensor:
+def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype=None,
+          replicated: bool = False) -> torch.Tensor:
     """``conv`` with SAME padding, computed in ``dtype`` (flax's
-    ``dtype=``; the input's dtype when None)."""
+    ``dtype=``; the input's dtype when None).  Under a model split it
+    computes this rank's slice of the output channels, or all of them
+    for a ``replicated`` head."""
     if dtype is not None:
         x = x.to(dtype)
     k, s = conv.kernel_size[0], conv.stride[0]
     b = None if conv.bias is None else conv.bias.to(x.dtype)
+    if model_split():
+        return _conv_model(conv, x, b, k, s, replicated)
     return F.conv2d(_pad_same(x, k, s), conv.weight.to(x.dtype), b,
                     s, 0, 1, conv.groups)
+
+
+def _conv_model(conv, x, b, k, s, replicated):
+    """The model-split conv: the input's channels gathered (unless it
+    holds them all), then output channels [lo, hi), group by group for
+    a grouped conv, so that each slice reads its own group's inputs."""
+    if x.shape[1] != conv.in_channels:
+        x = gather_channels(x)
+    w = conv.weight.to(x.dtype)
+    cout, g = w.shape[0], conv.groups
+    lo, hi = (0, cout) if replicated else channel_range(cout)
+    x = _pad_same(x, k, s)
+    if (lo, hi) == (0, cout):
+        return F.conv2d(x, w, b, s, 0, 1, g)
+    og, ig = cout // g, w.shape[1]
+    parts = []
+    for gi in range(lo // og, (hi - 1) // og + 1):
+        a, z = max(lo, gi * og), min(hi, (gi + 1) * og)
+        parts.append(F.conv2d(x[:, gi * ig:(gi + 1) * ig], w[a:z],
+                              None if b is None else b[a:z], s))
+    return torch.cat(parts, dim=1)
+
+
+def _cat_channels(parts, local: bool = True) -> torch.Tensor:
+    """Channel concat; under a model split, of the gathered parts, then
+    this rank's slice of it (``local``) or the whole."""
+    if not model_split():
+        return torch.cat(parts, dim=1)
+    full = torch.cat([gather_channels(p) for p in parts], dim=1)
+    return local_channels(full) if local else full
 
 
 class MaskConv(nn.Module):
@@ -143,20 +176,38 @@ class Norm(nn.Module):
             return self.SemiGlobalSyncBN_0(x)
         shape = (1, -1, 1, 1)
         xf = x.float()
+        c = self.scale.shape[0]
+        # under a model split this rank's slice of the channels
+        lo, hi = (0, c) if x.shape[1] == c else channel_range(c)
         if self.training:
-            mean = torch.mean(xf, dim=(0, 2, 3))
-            m2 = torch.mean(xf * xf, dim=(0, 2, 3))
+            mean, m2 = _batch_moments(xf)
             if self.bn_type == "sync_bn":
                 mean = pmean_if_present(mean, "data")
                 m2 = pmean_if_present(m2, "data")
             var = torch.maximum(m2 - mean * mean, torch.zeros_like(m2))
-            update_running_stats(self, mean, var)
+            if hi - lo < c:             # the running statistics whole
+                mean_all, var_all = (gather_channels(mean, 0),
+                                     gather_channels(var, 0))
+            else:
+                mean_all, var_all = mean, var
+            update_running_stats(self, mean_all, var_all)
         else:
-            mean, var = self.mean, self.var
+            mean, var = self.mean[lo:hi], self.var[lo:hi]
         y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) +
                                                   self.eps)
-        y = y * self.scale.view(shape) + self.bias.view(shape)
+        y = y * self.scale[lo:hi].view(shape) + self.bias[lo:hi].view(shape)
         return y.to(x.dtype)
+
+
+def _batch_moments(xf: torch.Tensor):
+    """E[x] and E[x^2] per channel over (N, H, W); under a space split
+    the sums over the ranks divided by the global count."""
+    if not space_split():
+        return (torch.mean(xf, dim=(0, 2, 3)),
+                torch.mean(xf * xf, dim=(0, 2, 3)))
+    n = xf.shape[0] * xf.shape[2] * global_width(xf.shape[3])
+    return (psum_if_present(torch.sum(xf, dim=(0, 2, 3)), "space") / n,
+            psum_if_present(torch.sum(xf * xf, dim=(0, 2, 3)), "space") / n)
 
 
 class BasicBlock(nn.Module):
@@ -224,7 +275,7 @@ class FireBlock(nn.Module):
         a = F.relu(self.Norm_0(a))
         b, m = self.MaskConv_1(x, mask)
         b = F.relu(self.Norm_1(b))
-        return torch.cat([a, b], dim=1), m
+        return _cat_channels([a, b]), m
 
 
 class BottleneckBlock(nn.Module):
@@ -297,7 +348,7 @@ class ConfidenceHead(nn.Module):
     def forward(self, x, extra_mask, temperature: float = 1.0,
                 tempered=None):
         h = self.ConvBNRelu_1(self.ConvBNRelu_0(x))
-        logit = _conv(self.Conv_0, h.float())
+        logit = _conv(self.Conv_0, h.float(), replicated=True)
         B, _, H, W = logit.shape
 
         def finish(lg, T):
@@ -305,6 +356,10 @@ class ConfidenceHead(nn.Module):
                 return (F.elu(lg) + 1 + 1e-12) * \
                     (extra_mask.float() + 1e-12)
             masked = torch.where(extra_mask > 0, lg, -1000.0)
+            if space_split():            # the softmax over the whole map
+                full = gather_width(masked, 3)
+                conf = torch.softmax(full.reshape(B, -1) / T, dim=-1)
+                return local_columns(conf.reshape(full.shape), W, 3)
             flat = masked.reshape(B, H * W) / T
             return torch.softmax(flat, dim=-1).reshape(B, 1, H, W)
 
@@ -331,6 +386,12 @@ def cycle_pairs(xs: Sequence[torch.Tensor]):
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
+
+
+def _gather_w(x: torch.Tensor) -> torch.Tensor:
+    """An NCHW output map in NHWC, gathered along W under a space split
+    (the unsplit map, on every rank)."""
+    return gather_width(_nhwc(x), 2)
 
 
 class DropoutRngError(RuntimeError):
@@ -457,12 +518,12 @@ class BEVOdomNet(nn.Module):
 
         py_preds = []
         for i, (stride, up, head) in enumerate(self._ups):
-            x = torch.cat([x, skips[-(i + 1)]], dim=1)
+            x = _cat_channels([x, skips[-(i + 1)]], local=False)
             x = x.repeat_interleave(stride, 2).repeat_interleave(stride, 3)
             x = up(x)
             if head is not None:
                 h_mod, conv = head
-                py = _conv(conv, h_mod(x).float())
+                py = _conv(conv, h_mod(x).float(), replicated=True)
                 pm = py_masks[i].float()
                 py_preds.append((py * (pm > 0).float(), pm))
 
@@ -470,7 +531,7 @@ class BEVOdomNet(nn.Module):
             return self._fc_head(skips[-1], x, input_mask)
 
         cbr0, cbr1, conv = self._tq_head
-        tq_map = _conv(conv, cbr1(cbr0(x)).float())
+        tq_map = _conv(conv, cbr1(cbr0(x)).float(), replicated=True)
         q = tq_map[:, 3:]
         q = q / torch.sqrt(torch.sum(q * q, 1, keepdim=True) + 1e-16)
         tq_map = torch.cat([tq_map[:, :3], q], dim=1)
@@ -489,10 +550,11 @@ class BEVOdomNet(nn.Module):
             finer = pyramid[-(p - 1)][1]
             pooled = F.avg_pool2d(_pad_same(finer, 3, 2), 3, 2)
             pyramid[-p] = (pyramid[-p][0], pyramid[-p][1] * pooled)
-        pyramid = [(_nhwc(a), _nhwc(b)) for a, b in pyramid]
+        pyramid = [(_gather_w(a), _gather_w(b)) for a, b in pyramid]
 
-        tq_map, t_conf, q_conf = _nhwc(tq_map), _nhwc(t_conf), _nhwc(q_conf)
-        mask = _nhwc(input_mask)
+        tq_map, t_conf, q_conf = (_gather_w(tq_map), _gather_w(t_conf),
+                                  _gather_w(q_conf))
+        mask = _gather_w(input_mask)
         odom = self.aggregate(tq_map, mask, t_conf, q_conf)
         out = {
             "odometry": odom,                      # (P, 7) [t, q]
@@ -516,13 +578,14 @@ class BEVOdomNet(nn.Module):
         identity-pose bias; ``odom_format="r(x+t)"`` rotates t.  The
         maps are placeholders: a zero tq map, unit confidences, no
         pyramid."""
-        h = torch.mean(bottleneck.float(), dim=(2, 3)).to(bottleneck.dtype)
+        h = bev_mean(bottleneck).to(bottleneck.dtype)
         h = F.relu(self.Dense_0(h.float()))
         odom = self.Dense_1(h)
         t, q = odom[:, :3], odom[:, 3:]
         if self.cfg.odom_format == "r(x+t)":
             t = rotate_vec_by_q(t, qnormalize(q))
         P, _, H, W = x.shape
+        W = global_width(W)
         ones = torch.ones((P, H, W, 1), device=x.device)
         return {
             "odometry": torch.cat([t, qnormalize(q)], dim=-1).float(),
@@ -530,7 +593,7 @@ class BEVOdomNet(nn.Module):
             "t_conf": ones,
             "q_conf": ones.clone(),
             "pyramid": [],
-            "input_mask": _nhwc(input_mask),
+            "input_mask": _gather_w(input_mask),
         }
 
     def _vote(self, tq_map, t_w, q_w):

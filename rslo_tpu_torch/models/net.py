@@ -24,6 +24,7 @@ import torch
 from torch import nn
 
 from ..config.schema import PipelineCfg, grid_size
+from ..parallel.spatial import bev_constraint
 from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
                      build_band_geometry, build_geometry)
@@ -166,7 +167,9 @@ class OdomNet(nn.Module):
             covs.append(cov)
             feats.append(f)
         x1, x2 = cycle_pairs(bevs)
-        preds = self.bev_net(torch.cat([x1, x2], dim=-1))
+        # the split hook: this rank's columns under a spatial split
+        # (parallel/spatial.py), the tensor itself otherwise
+        preds = self.bev_net(bev_constraint(torch.cat([x1, x2], dim=-1)))
         preds["voxel_features"] = feats        # list[L] of (V, F)
         if with_cov:
             preds["voxel_covs"] = covs         # list[L] of (V, 7)

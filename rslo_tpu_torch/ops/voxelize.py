@@ -1,6 +1,8 @@
 """Fixed-capacity point-cloud voxelization on torch tensors (counterpart
 of ``rslo_tpu/ops/voxelize.py``): the (V, P, F) point stack
-(``voxelize``) and the sorted-mean path (``voxelize_sorted_mean``).
+(``voxelize``), the sorted-mean path (``voxelize_sorted_mean``), the
+sort-free mean path (``voxelize_mean``) and the numpy oracle
+(``voxelize_np``).
 
 Voxels come out sorted by linearized (z, y, x) id.  At most
 ``max_voxels`` voxels are kept (the largest ids are dropped) and at most
@@ -170,3 +172,71 @@ def voxelize_sorted_mean(points: torch.Tensor, point_mask: torch.Tensor,
     mean = torch.where(vox.mask[:, None], rank_sum(vox.voxels) / n, 0.0)
     return MeanVoxels(mean, vox.coords, vox.num_points, vox.num_voxels,
                       vox.point_voxel)
+
+
+def voxelize_mean(points: torch.Tensor, point_mask: torch.Tensor,
+                  config: VoxelizerConfig) -> MeanVoxels:
+    """Sort-free voxelization: each voxel's slot is the exclusive prefix
+    sum of the dense occupancy grid at its id, so slots are id-ordered
+    and the cells beyond ``max_voxels`` (the largest ids) are dropped, as
+    in ``voxelize``.  The means take ALL of a voxel's points (no
+    ``max_points`` cap).  The ground filter is not applied.
+
+    points: (N, F) float, columns 0:3 are x, y, z; point_mask: (N,) bool.
+
+    The integer outputs are order-free (an occupancy write, a prefix sum,
+    a scatter-min of ids).  The feature sums are an ``index_add_``: in
+    point order on the CPU, in no fixed order on a CUDA card, so there a
+    mean moves by a few float32 ulps from run to run.  JAX builds the
+    prefix sum in two levels; one int32 cumsum gives the same slots.
+    """
+    N, F = points.shape
+    V = config.max_voxels
+    dev = points.device
+    nx, ny, nz = (int(g) for g in config.grid_size)
+    G = nx * ny * nz
+    pr = torch.tensor(config.point_cloud_range, dtype=points.dtype,
+                      device=dev)
+    vs = torch.tensor(config.voxel_size, dtype=points.dtype, device=dev)
+    cxyz = torch.floor((points[:, :3] - pr[:3]) / vs).to(torch.int32)
+    bounds = torch.tensor([nx, ny, nz], dtype=torch.int32, device=dev)
+    valid = torch.all((cxyz >= 0) & (cxyz < bounds), dim=-1) & point_mask
+    vid = (cxyz[:, 2] * ny + cxyz[:, 1]) * nx + cxyz[:, 0]
+    vid = torch.where(valid, vid, G).long()
+
+    occ = torch.zeros(G + 1, dtype=torch.int32, device=dev)
+    occ[vid] = 1
+    occ = occ[:G]
+    csum = torch.cumsum(occ, 0, dtype=torch.int32)
+    slot_all = torch.cat([csum - occ,
+                          torch.full((1,), V, dtype=torch.int32,
+                                     device=dev)])
+    pslot = slot_all[vid]
+    keep = valid & (pslot < V)
+    pslot = torch.where(keep, pslot, V).long()
+
+    feat_sum = torch.zeros((V + 1, F), dtype=points.dtype, device=dev)
+    feat_sum.index_add_(0, pslot, torch.where(keep[:, None], points, 0.0))
+    count = torch.zeros(V + 1, dtype=torch.int32, device=dev)
+    count.index_add_(0, pslot, keep.to(torch.int32))
+    features = feat_sum[:V] / torch.clamp(count[:V, None], min=1)
+
+    # coords per slot: min-scatter of ids (a slot's points share one id)
+    ids = torch.full((V + 1,), G, dtype=torch.int64, device=dev)
+    ids = ids.scatter_reduce(0, pslot, torch.where(keep, vid, G), "amin")
+    ids = ids[:V]
+    mask_v = count[:V] > 0
+    zyx = torch.stack([ids // (ny * nx), (ids // nx) % ny, ids % nx], -1)
+    coords = torch.where(mask_v[:, None], zyx, -1).to(torch.int32)
+    features = torch.where(mask_v[:, None], features, 0.0)
+    point_voxel = torch.where(keep, pslot, -1).to(torch.int32)
+    return MeanVoxels(features, coords, count[:V],
+                      torch.clamp(csum[-1], max=V), point_voxel)
+
+
+def voxelize_np(points: np.ndarray, config: VoxelizerConfig) -> Voxels:
+    """Numpy oracle with ``voxelize``'s semantics (for tests and host
+    prep): every point kept, run on the CPU, each field a numpy array."""
+    pts = torch.as_tensor(np.asarray(points))
+    out = voxelize(pts, torch.ones(len(pts), dtype=torch.bool), config)
+    return Voxels(*(t.numpy() for t in out))

@@ -21,6 +21,8 @@ from typing import Dict, Iterable, Mapping, Optional
 import torch
 import torch.distributed as dist
 
+from ..utils.mesh_axis import gather_bits
+
 SLURM_PORT = 8898       # the coordinator port JAX's SLURM path uses
 
 
@@ -169,18 +171,14 @@ def broadcast_(tensors: Iterable[torch.Tensor], mesh: DataMesh) -> None:
 
 def all_gather(x: torch.Tensor, mesh: Optional[DataMesh]) -> torch.Tensor:
     """(D, *x.shape): every rank's ``x`` in rank order, on ``x``'s device
-    (``x[None]`` without a process group).  Each rank writes the bits of
-    its 4- or 8-byte elements into a zero-filled buffer that an integer
-    all-reduce sums (gloo's all_gather takes no CUDA tensor), so every
-    value, -0.0 and NaN included, arrives unchanged."""
+    (``x[None]`` without a process group), through
+    ``utils/mesh_axis.py::gather_bits``: each rank writes the bits of its
+    elements into a zero-filled buffer that an integer all-reduce sums
+    (gloo's all_gather takes no CUDA tensor), so every value, -0.0 and
+    NaN included, arrives unchanged."""
     if mesh is None or mesh.group is None:
         return x[None]
-    ints = {4: torch.int32, 8: torch.int64}[x.element_size()]
-    buf = torch.zeros((mesh.size,) + tuple(x.shape), dtype=ints,
-                      device=x.device)
-    buf[mesh.rank] = x.contiguous().view(ints)
-    dist.all_reduce(buf, group=mesh.group)
-    return buf.view(x.dtype)
+    return gather_bits(x, mesh.group, mesh.rank, mesh.size)
 
 
 def _flat_collective(tensors: Iterable[torch.Tensor], collective):

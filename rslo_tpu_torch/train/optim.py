@@ -71,6 +71,36 @@ def onecycle_momentum(cfg: OptimizerCfg, total_steps: int) -> Callable:
     return sched
 
 
+def exponential_decay_warmup(lr_init: float, decay_steps: int,
+                             decay_rate: float, warmup_steps: int = 0,
+                             staircase: bool = True) -> Callable:
+    """Exponential decay with linear warmup (the reference's
+    ExponentialDecayWarmup): lr_init * decay_rate ** (step / decay_steps,
+    floored with ``staircase``), times min(step / warmup_steps, 1)."""
+    def sched(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=_F32)
+        p = step / decay_steps
+        if staircase:
+            p = torch.floor(p)
+        lr = lr_init * torch.pow(torch.tensor(decay_rate, dtype=_F32), p)
+        if warmup_steps > 0:
+            lr = lr * torch.clamp(step / warmup_steps, 0.0, 1.0)
+        return lr
+    return sched
+
+
+def manual_stepping(boundaries, rates) -> Callable:
+    """Piecewise-constant lr (ManualStepping): ``rates[i]`` from
+    ``boundaries[i - 1]`` on."""
+    def sched(step) -> torch.Tensor:
+        step = torch.as_tensor(step, dtype=_F32)
+        lr = torch.tensor(rates[0], dtype=_F32)
+        for b, r in zip(boundaries, rates[1:]):
+            lr = torch.where(step >= b, torch.tensor(r, dtype=_F32), lr)
+        return lr
+    return sched
+
+
 @dataclasses.dataclass
 class AdamState:
     """Update count and Adam moments, keyed by trainable name."""

@@ -1,4 +1,5 @@
-"""Mesh-axis binding for cross-replica statistics (counterpart of
+"""Mesh-axis binding for cross-replica statistics and the BEV stage's
+spatial and tensor parallelism (counterpart of
 ``rslo_tpu/utils/mesh_axis.py``).
 
 JAX's sync-BN variants reduce their moments over the mesh "data" axis
@@ -20,16 +21,26 @@ all-reduce SUM of the incoming gradient, the transpose JAX takes under
 ranks holding [1, 2] and [2, 2] the gradients are [2, 4] and [4, 4].  An
 in-place ``dist.all_reduce`` on the moments would give each rank only
 its own share of that gradient, without an error.
+
+The "space" and "model" axes (``rslo_tpu_torch/parallel/``) shard the
+BEV stage's width and channels over a ``GridMesh``, a (space x model)
+grid of ranks with a process group per row and per column.  Their
+halos and gathers are ``all_gather_if_present``: every rank's bits
+through an integer all-reduce (gloo takes CUDA tensors only for
+``all_reduce`` and ``broadcast``), exact for -0.0 and NaN, whose
+backward all-reduces the cotangent and keeps the rank's share.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-AXES = ("data",)                 # the mesh axis names the package uses
-_BOUND: dict = {}                # axis name -> (group, size)
+AXES = ("data", "space", "model")   # the mesh axis names the package uses
+_BOUND: dict = {}                # axis name -> (group, size, rank)
 
 
 def _check(name: str):
@@ -38,14 +49,17 @@ def _check(name: str):
 
 
 @contextlib.contextmanager
-def bind_axis(name: str, group, size: int):
+def bind_axis(name: str, group, size: int, rank: Optional[int] = None):
     """Bind the process group ``group`` of ``size`` ranks to the axis
     ``name`` for the span of the block (JAX: tracing inside
-    ``shard_map`` over that axis)."""
+    ``shard_map`` over that axis).  ``rank`` is this process's rank in
+    the group (by default asked of the group; 0 without one)."""
     _check(name)
     if name in _BOUND:
         raise RuntimeError(f"mesh axis {name!r} is already bound")
-    _BOUND[name] = (group, size)
+    if rank is None:
+        rank = dist.get_rank(group) if group is not None else 0
+    _BOUND[name] = (group, size, rank)
     try:
         yield
     finally:
@@ -62,6 +76,12 @@ def axis_present(name: str) -> bool:
 def axis_size(name: str) -> int:
     """Ranks on the bound axis ``name`` (1 when it is not bound)."""
     return _BOUND[name][1] if axis_present(name) else 1
+
+
+def axis_index(name: str) -> int:
+    """This process's rank on the bound axis ``name`` (0 when it is not
+    bound), as ``lax.axis_index``."""
+    return _BOUND[name][2] if axis_present(name) else 0
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -95,3 +115,87 @@ def pmean_if_present(x: torch.Tensor, name: str) -> torch.Tensor:
     if not axis_present(name):
         return x
     return psum_if_present(x, name) / axis_size(name)
+
+
+def gather_bits(x: torch.Tensor, group, rank: int,
+                size: int) -> torch.Tensor:
+    """(size, *x.shape): every rank's ``x`` in rank order.  Each rank
+    writes the bits of its elements into a zero-filled integer buffer
+    that one all-reduce sums, so every value, -0.0 and NaN included,
+    arrives unchanged (gloo's ``all_gather`` takes no CUDA tensor).
+    2-byte floats travel as float32, which holds each of them exactly."""
+    if x.element_size() == 2 and x.is_floating_point():
+        return gather_bits(x.float(), group, rank, size).to(x.dtype)
+    ints = {4: torch.int32, 8: torch.int64}[x.element_size()]
+    buf = torch.zeros((size,) + tuple(x.shape), dtype=ints,
+                      device=x.device)
+    buf[rank] = x.contiguous().view(ints)
+    dist.all_reduce(buf, group=group)
+    return buf.view(x.dtype)
+
+
+class _AllGather(torch.autograd.Function):
+    """``gather_bits`` forward; backward, the all-reduced cotangent's
+    share of this rank (the transpose of an all-gather)."""
+
+    @staticmethod
+    def forward(ctx, x, group, rank, size):
+        ctx.group, ctx.rank = group, rank
+        return gather_bits(x, group, rank, size)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g[ctx.rank], None, None, None
+
+
+def all_gather_if_present(x: torch.Tensor, name: str) -> torch.Tensor:
+    """(size, *x.shape): every rank's ``x`` on the bound axis ``name``
+    in rank order (differentiable); ``x[None]`` when it is not bound."""
+    if not axis_present(name):
+        return x[None]
+    group, size, rank = _BOUND[name]
+    return _AllGather.apply(x, group, rank, size)
+
+
+@dataclasses.dataclass(frozen=True)
+class GridMesh:
+    """A (space x model) grid of every rank of the default process group
+    (JAX: a 2-D ``Mesh`` with axes ("space", "model")): rank ``s * model
+    + m`` sits at row ``s``, column ``m``.  ``space_group`` holds the
+    ranks of this rank's column (the same ``m``: they split the BEV
+    width), ``model_group`` those of its row (the same ``s``: they split
+    the channels)."""
+    space: int
+    model: int
+    space_index: int
+    model_index: int
+    space_group: object
+    model_group: object
+
+    def axis(self, name: str):
+        """(group, size, this rank's index) of the mesh axis ``name``."""
+        if name == "space":
+            return self.space_group, self.space, self.space_index
+        if name == "model":
+            return self.model_group, self.model, self.model_index
+        raise ValueError(f"a GridMesh has the axes 'space' and 'model', "
+                         f"not {name!r}")
+
+
+def grid_mesh(space: int, model: int = 1) -> GridMesh:
+    """The (space x model) grid over every rank of the initialized
+    default group (``space * model`` must be its size).  Every rank
+    calls ``dist.new_group`` for every row and every column, rows
+    first, in the same order, as torch requires."""
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if space * model != world:
+        raise ValueError(f"a {space} x {model} grid needs {space * model} "
+                         f"ranks, the group has {world}")
+    s_i, m_i = divmod(rank, model)
+    rows = [dist.new_group([s * model + m for m in range(model)])
+            for s in range(space)]
+    cols = [dist.new_group([s * model + m for s in range(space)])
+            for m in range(model)]
+    return GridMesh(space, model, s_i, m_i, cols[m_i], rows[s_i])

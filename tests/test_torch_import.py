@@ -38,15 +38,17 @@ def test_port_modules_import_without_jax():
     # and the rest of the model layer: attention, layers, the semi-global
     # BN, the spatial-grouped norm, the learned VFE and the dense middle,
     # and the data-parallel modules (utils/mesh_axis.py,
-    # train/distributed.py, pgo/sharded.py)
-    assert int(n) >= 68, out.stdout
+    # train/distributed.py, pgo/sharded.py), and the BEV stage's spatial
+    # and tensor parallelism (parallel/), the bench, mean shift and the
+    # timing harness
+    assert int(n) >= 74, out.stdout
     assert leaked.strip() == "[]", out.stdout
 
 
 def test_port_cli_imports_without_jax():
     """``python -m rslo_tpu_torch.cli`` loads no JAX, h5py or
-    matplotlib, and shows its ``create_hdf5``, ``train`` and
-    ``evaluate`` verbs."""
+    matplotlib, and shows its ``create_hdf5``, ``train``, ``evaluate``
+    and ``bench`` verbs."""
     env = dict(os.environ, PYTHONPATH=REPO)
     code = ("import sys, rslo_tpu_torch.cli; print(sorted(m for m in "
             "sys.modules if m.split('.')[0] in ('jax', 'flax', 'rslo_tpu', "
@@ -60,6 +62,7 @@ def test_port_cli_imports_without_jax():
                            capture_output=True, text=True, timeout=120)
     assert usage.returncode == 0 and "evaluate" in usage.stdout
     assert "train" in usage.stdout and "create_hdf5" in usage.stdout
+    assert "bench" in usage.stdout
 
 
 def _imported_roots(path):
@@ -205,5 +208,34 @@ def test_data_parallel_modules_import_without_jax():
         path = (os.path.join(REPO, "tests", name + ".py")
                 if "." not in name else
                 os.path.join(REPO, *name.split(".")) + ".py")
+        assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}, \
+            name
+
+
+_SPLIT_AND_BENCH_MODULES = ("rslo_tpu_torch.parallel",
+                            "rslo_tpu_torch.parallel.spatial",
+                            "rslo_tpu_torch.parallel.tensor",
+                            "rslo_tpu_torch.bench",
+                            "rslo_tpu_torch.geometry.meanshift",
+                            "rslo_tpu_torch.utils.timing")
+
+
+def test_split_bench_and_utility_modules_import_without_jax():
+    """The BEV stage's spatial and tensor parallelism, the bench, mean
+    shift and the timing harness, in one fresh process: no jax, flax,
+    rslo_tpu, h5py or matplotlib loaded, and no import statement of
+    theirs names jax, flax or rslo_tpu."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    code = (f"import sys, {', '.join(_SPLIT_AND_BENCH_MODULES)}; "
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"('jax', 'flax', 'rslo_tpu', 'h5py', 'matplotlib')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for name in _SPLIT_AND_BENCH_MODULES:
+        path = os.path.join(REPO, *name.split("."))
+        path = (os.path.join(path, "__init__.py") if os.path.isdir(path)
+                else path + ".py")
         assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}, \
             name

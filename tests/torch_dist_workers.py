@@ -247,3 +247,80 @@ def ba_sharded(mesh, shards, iters):
                        for f in shards[mesh.rank]))
     poses, lms, cost = solve_ba_sharded(prob, mesh, iters=iters)
     return _np(poses), _np(lms), float(cost)
+
+
+# -- the split BEV stage (test_torch_spatial.py) ----------------------------
+
+def bev_splits(mesh, nets, examples, cases, halo, grad):
+    """Each case: (name, net key, example key, grid (space, model), axes
+    ("space", "model" or both), train).  ``nets`` maps a key to (config
+    JSON, state dict), ``examples`` to numpy arrays.  Builds the 4 x 1
+    and 2 x 2 grids of the 4 ranks, runs each case's split forward
+    (``parallel/``) under no_grad, and returns per case the outputs (and
+    in train mode the BEV net's buffers after it); plus ``halo``'s
+    cases: (name, NCHW input, conv weight, kernel, stride) as a stride-k
+    conv through ``bev_net._conv`` on this rank's columns of a 4-rank
+    width split; ``halo_refusal``: the ValueError's message of a halo
+    wider than some ranks' share; and ``grad``: L = sum(gather(x_r) * grad[r]) over the
+    4-rank space axis with x_r = r, its gather and dL/dx_r."""
+    from rslo_tpu_torch.config.schema import PipelineCfg
+    from rslo_tpu_torch.models import bev_net
+    from rslo_tpu_torch.models.net import OdomNet
+    from rslo_tpu_torch.parallel.spatial import (_active, _Split,
+                                                 bev_constraint,
+                                                 make_spatial_forward)
+    from rslo_tpu_torch.parallel.tensor import (make_model_forward,
+                                                make_spatial_model_forward)
+    from rslo_tpu_torch.utils.mesh_axis import (all_gather_if_present,
+                                                bind_axis, grid_mesh)
+    grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2)}
+    makers = {("space",): make_spatial_forward,
+              ("model",): make_model_forward,
+              ("space", "model"): make_spatial_model_forward}
+    out = {}
+    for name, key, ex_key, grid, axes, train in cases:
+        cfg_json, state = nets[key]
+        net = OdomNet(PipelineCfg.from_json(cfg_json))
+        net.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+        fwd = makers[tuple(axes)](net, grids[tuple(grid)], train=train)
+        ex = {k: torch.tensor(v) for k, v in examples[ex_key].items()}
+        with torch.no_grad():
+            preds = fwd(ex)
+        res = {k: _np(preds[k].float()) for k in (
+            "odometry", "tq_map", "t_conf", "q_conf", "input_mask")}
+        res["pyramid"] = [(_np(a.float()), _np(b.float()))
+                          for a, b in preds["pyramid"]]
+        if train:
+            res["buffers"] = {k: _np(v) for k, v in
+                              net.bev_net.named_buffers()}
+        out[name] = res
+    g = grids[(4, 1)]
+    for name, x, w, k, s in halo:
+        conv = torch.nn.Conv2d(w.shape[1], w.shape[0], k, s, bias=False)
+        conv.weight.data = torch.tensor(w)
+        x = torch.tensor(x)
+        split = _Split(True, False, 8)
+        with bind_axis("space", g.space_group, g.space, g.space_index), \
+                _active(split):
+            local = bev_constraint(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+            out[name] = dict(y=_np(bev_net._conv(conv, local)),
+                             pool=_np(bev_net.max_pool_mask(
+                                 local[:, :1], k, s)),
+                             widths=split.widths)
+    # a 7 x 7 gate (halo 3) at the stride-4 level of the 16/16/8/8 split,
+    # 4/4/2/2 columns: every rank raises, those holding 4 too, before
+    # any collective (a rank left in it would hang)
+    with bind_axis("space", g.space_group, g.space, g.space_index), \
+            _active(_Split(True, False, 8)):
+        local = bev_constraint(torch.zeros(1, 2, 48, 1))
+        try:
+            bev_net._pad_same(torch.zeros(1, 1, 2, local.shape[2] // 4), 7, 1)
+            out["halo_refusal"] = None
+        except ValueError as e:
+            out["halo_refusal"] = str(e)
+    x = torch.full((3,), float(g.space_index), requires_grad=True)
+    with bind_axis("space", g.space_group, g.space, g.space_index):
+        y = all_gather_if_present(x, "space")
+        torch.sum(y * torch.tensor(grad[g.space_index])).backward()
+    out["grad"] = dict(gathered=_np(y), dx=_np(x.grad))
+    return out
