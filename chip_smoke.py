@@ -215,6 +215,38 @@ modules only tests reach.  Phases (each one exits non-zero when it fails):
      (the JAX bench's keys), finite rates, its B1 launches; (f)
      ``voxelize_mean`` on a 100k-point scan, ``mean_shift`` on 3000
      points and ``SectionTimer`` on card tensors, card against CPU
+ 25. the middle's engine options and the split's semi-global BN
+     (``engine_option_phases``), on phase 4's weights and scans at
+     ``configs/kitti_eval_ours.json``: (a) ``engine="tiles"``: 8 streamed
+     scans (no kernel of B1-B5 launched, pose after scan 2 == the
+     two-frame forward, peak memory), the middle's f32 BEV and
+     covariances of a scan on the card against the same module on the
+     CPU within JAX's 2e-4 of the largest value, and against the
+     rulebook engine's for 2 scans (read, not held: the tiled halo drops
+     a corner tap behind an inactive edge tile, in JAX too, so each
+     scan's dropped L0 taps are counted; at capacities that neither
+     engine overflows: AMPLE_LEVELS, AMPLE_TILES),
+     the train verb for 2 steps at ``configs/kitti_train_ours.json``
+     (finite loss, B3 launches a step as predicted, peak memory) and
+     ``evaluate`` on 8 windows of its checkpoint; (b) each plan lookup
+     (``ranked``, ``ranked_planes``, ``sorted_planes``, ``slot_planes``
+     on the rulebook engine, ``ranked`` on the band engine): the ranked
+     lookups' strays a call; the geometry of the 8 scans equal to the
+     slot map's (valid entries and validity; band plans field by field)
+     and the poses too, unless a ranked lookup saturated (then the
+     missing taps are counted); the geometry of 2 scans equal, entry
+     for entry, to the same lookup's on the CPU; the plan build's ms, 8
+     streamed scans with the slot-map engine's launches, the streaming
+     ms a scan; (c) ``plane_apply``:
+     the middle's BEV and covariances of a scan bit-equal to the plain
+     row path's (the z collapse through B1 on both), one B1 launch a
+     scan, streaming ms;
+     (d) four gloo ranks on the card (``split_rank`` jobs): the
+     semi-global BN in f32 train mode over SP2, TP2 and SP4 (maps and
+     the BEV net's eight buffers a BN against the unsplit forward's),
+     and the spatial gate over SP4 at 48 BEV columns (x +-19.2 m;
+     2/2/1/1 columns at the last stage, a halo of 3: the shipped 176
+     columns reach past a share only from 8 ranks on)
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -236,7 +268,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-24 beside them) and the result (JSON); the card's
+of phases 14-25 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -338,7 +370,7 @@ POSE_TOL = dict(rtol=1e-5, atol=1e-5)
 ENCODER_CONVS = 14
 # phase 14: windows evaluated on each engine
 EVAL_WINDOWS = {"rulebook": 16, "band": 8, "pillar": 16, "options": 8,
-                "fc": 8}
+                "fc": 8, "tiles": 8}
 # the JAX package's run_eval result keys (rslo_tpu/eval/runner.py)
 EVAL_KEYS = {
     "_meta": ["windows", "elapsed_s", "frames_per_s"],
@@ -815,13 +847,13 @@ def pillar_flops(middle):
 class StepRecorder:
     """Stands in for ``train.loop.train_step`` while a train verb runs:
     each step's launches (the counts' change across it), its warmup
-    flag, its host ms (synchronized on both sides) and the first batch
-    it was given."""
+    flag, its host ms (synchronized on both sides), its metrics and the
+    first batch it was given."""
 
     def __init__(self, loop, counts, torch):
         self.loop, self.counts, self.torch = loop, counts, torch
         self.step = loop.train_step
-        self.records, self.batch = [], None
+        self.records, self.metrics, self.batch = [], [], None
 
     def __call__(self, state, batch, *args, warmup, **kw):
         torch = self.torch
@@ -836,6 +868,7 @@ class StepRecorder:
         after = self.counts()
         self.records.append((warmup, {k: after[k] - before[k]
                                       for k in after}, ms))
+        self.metrics.append(out[1])
         return out
 
     def __enter__(self):
@@ -3384,11 +3417,13 @@ def rank_kernels(_build, rank):
 
 
 def split_rank(spec_path):
-    """One rank of phase 24a-d, in its own process: joins the gloo group
-    on the card, forms the 4 x 1 and 2 x 2 grids, and runs each layout
-    of SPLIT_LAYOUTS in each precision: one forward with the launch
-    counts set to 0 just before and read just after, then SPLIT_TIMED
-    forwards on the host clock (see ``split_phases``)."""
+    """One rank of phase 24a-d (or of phase 25d's jobs), in its own
+    process: joins the gloo group on the card, forms the 4 x 1 and 2 x 2
+    grids, and runs each layout of SPLIT_LAYOUTS (or of the job's) in
+    each precision: one forward with the launch counts set to 0 just
+    before and read just after (in train mode also the BEV net's
+    buffers after it), then SPLIT_TIMED (the job's ``timed``) forwards
+    on the host clock (see ``split_phases``)."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, REPO)
@@ -3415,40 +3450,58 @@ def split_rank(spec_path):
     initialize_multihost(spec["rdv"], spec["world"], rank, device=dev,
                          backend=spec["backend"])
     out = {}
+    # phase 24's one job, or phase 25d's: (tag, state, example, configs
+    # by precision, layout names or None for all, train mode, timed
+    # forwards)
+    jobs = spec.get("jobs") or [dict(
+        tag=None, state=spec["state"], example=spec["example"],
+        configs=spec["configs"], layouts=None, train=False,
+        timed=SPLIT_TIMED)]
     try:
         grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2)}
-        state = torch.load(spec["state"], weights_only=False)
-        ex = {k: v.to(dev) for k, v in
-              torch.load(spec["example"], weights_only=False).items()}
-        for prec, cfg_json in spec["configs"].items():
-            net = OdomNet(PipelineCfg.from_json(cfg_json)).to(dev)
-            net.load_state_dict(state)
-            for name, grid, axes in SPLIT_LAYOUTS:
-                fwd = makers[axes](net, grids[grid])
-                for fn in counted.values():
-                    fn.launches = 0
-                with torch.no_grad():
-                    preds = fwd(ex)
-                torch.cuda.synchronize()
-                launches = {k: fn.launches for k, fn in counted.items()}
-                ms = []
-                for _ in range(SPLIT_TIMED):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
+        for job in jobs:
+            state = torch.load(job["state"], weights_only=False)
+            ex = {k: v.to(dev) for k, v in
+                  torch.load(job["example"], weights_only=False).items()}
+            layouts = [lay for lay in SPLIT_LAYOUTS if job["layouts"] is None
+                       or lay[0] in job["layouts"]]
+            for prec, cfg_json in job["configs"].items():
+                net = OdomNet(PipelineCfg.from_json(cfg_json)).to(dev)
+                for name, grid, axes in layouts:
+                    # each layout from the same statistics (train mode
+                    # moves them)
+                    net.load_state_dict(state)
+                    fwd = makers[axes](net, grids[grid], train=job["train"])
+                    for fn in counted.values():
+                        fn.launches = 0
                     with torch.no_grad():
-                        fwd(ex)
+                        preds = fwd(ex)
                     torch.cuda.synchronize()
-                    ms.append((time.perf_counter() - t0) * 1e3)
-                out[prec, name] = dict(
-                    maps={k: preds[k].float().cpu().numpy()
-                          for k in SPLIT_KEYS},
-                    pyramid=[(a.float().cpu().numpy(),
-                              b.float().cpu().numpy())
-                             for a, b in preds["pyramid"]],
-                    launches=launches, ms=ms)
-            if prec == "bf16":
-                out[prec, NO_HALO] = own_edges_forward(
-                    makers[("space",)](net, grids[(4, 1)]), ex, torch)
+                    launches = {k: fn.launches for k, fn in counted.items()}
+                    buffers = ({k: v.cpu().numpy().copy() for k, v in
+                                net.bev_net.named_buffers()}
+                               if job["train"] else None)
+                    ms = []
+                    for _ in range(job["timed"]):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        with torch.no_grad():
+                            fwd(ex)
+                        torch.cuda.synchronize()
+                        ms.append((time.perf_counter() - t0) * 1e3)
+                    key = ((prec, name) if job["tag"] is None
+                           else (job["tag"], prec, name))
+                    out[key] = dict(
+                        maps={k: preds[k].float().cpu().numpy()
+                              for k in SPLIT_KEYS},
+                        pyramid=[(a.float().cpu().numpy(),
+                                  b.float().cpu().numpy())
+                                 for a, b in preds["pyramid"]],
+                        launches=launches, ms=ms, buffers=buffers)
+                if prec == "bf16" and job["tag"] is None:
+                    net.load_state_dict(state)
+                    out[prec, NO_HALO] = own_edges_forward(
+                        makers[("space",)](net, grids[(4, 1)]), ex, torch)
     finally:
         dist.destroy_process_group()
     torch.save(out, spec["out"])
@@ -3692,6 +3745,558 @@ def split_phases(cfg, example, bench_main, counted, reset_counts, counts,
         f"each synchronized on its value's device)")
     if counts() != dict.fromkeys(counted, 0):
         fail(f"24f: a kernel of B1-B5 launched: {counts()}")
+    return launches
+
+
+# -- phase 25: the middle's engine options; the split's semi-global BN ------
+
+TILES_DIR = os.path.join(REPO, "build", "smoke_tiles")
+# the tiled middle, f32, card against CPU: max |diff| over the largest
+# value, held to JAX's own bound of the tiled engine against the rulebook
+# one (tests/test_tiled_engine.py:63).  Against the rulebook engine it is
+# read at capacities that neither engine overflows (the engines drop
+# different sites past them).  The synthetic 100k-point scans hold
+# ~40000 voxels, ~73.8k L1, ~95.4k L2 and ~27.2k L3 sites, ~27.4k L0
+# and ~7.5k L1 tiles: the shipped capacities (40960, 40960, 20480,
+# 10240) and (16384, 8192) drop sites on both engines
+TILES_TOL = 2e-4
+AMPLE_LEVELS = (40960, 102400, 102400, 32768)
+AMPLE_TILES = (32768, 16384)
+TILES_STEPS = 2
+# the plan lookups of phase 25b: (name, engine, plan_lookup)
+LOOKUP_RUNS = (("ranked", "rulebook", "ranked"),
+               ("ranked_planes", "rulebook", "ranked_planes"),
+               ("sorted_planes", "rulebook", "sorted_planes"),
+               ("slot_planes", "rulebook", "slot_planes"),
+               ("band_ranked", "band", "ranked"))
+LOOKUP_TIMED = 10          # plan builds and streamed scans timed a run
+# the ranked lookup's exact resolve takes this many strays a call (its
+# default); past it the first ones in flat order are resolved and the
+# rest dropped, in JAX too.  Strays are the queries above a block's
+# 4096-id window: the next z plane's neighbours when a plane holds more
+# than the window (the synthetic scans' thin z slab), or a full level's
+# ids beyond its largest.  A lookup is held to the slot map's geometry
+# while no call saturates, and to its own CPU run, entry for entry, on
+# CPU_LOOKUP_SCANS scans in every case
+STRAY_CAPACITY = 8192
+CPU_LOOKUP_SCANS = 2
+# phase 25d: the semi-global BN (train mode, f32) over these layouts;
+# the spatial gate over SP4 at 48 BEV columns (x +-19.2 m at 0.1 m):
+# 16/16/8/8, 2/2/1/1 at the encoder's last stage, where its 7 x 7 conv
+# needs a halo of 3.  The shipped 176 columns give 6/6/5/5 there: a
+# halo of 3 reaches past a share only from 8 ranks on.
+SG_LAYOUTS = ("sp2", "tp2", "sp4")
+WIDE_HALO_X = 19.2
+SPLIT_JOB_TIMED = 1
+
+
+def _geometry_diff(a, b, torch, exact=False):
+    """(the first difference's name or None, taps valid in ``b``'s raw
+    rulebooks and not in ``a``'s) of two FrameGeometry: levels, then
+    each rulebook's validity and its valid entries (``exact``: every
+    entry), band plans field by field."""
+    from rslo_tpu_torch.ops import band_conv as bc
+    first, lost = None, 0
+    for i, (la, lb) in enumerate(zip(a.levels, b.levels)):
+        for f in ("ids", "coords", "mask"):
+            if not torch.equal(getattr(la, f).cpu(), getattr(lb, f).cpu()):
+                return f"L{i}.{f}", 0
+    for kind in ("sub_rb", "down_rb", "inv_rb"):
+        for i, (ra, rb) in enumerate(zip(getattr(a, kind),
+                                         getattr(b, kind))):
+            if isinstance(ra, bc.BandIndex):
+                same = all(torch.equal(getattr(ra, f).cpu(),
+                                       getattr(rb, f).cpu())
+                           for f in ("base", "sel", "ov_out", "ov_in",
+                                     "ov_tap", "ov_count"))
+            else:
+                va, vb = ra.valid.cpu(), rb.valid.cpu()
+                ia, ib = ra.idx.cpu(), rb.idx.cpu()
+                lost += int((vb & ~va).sum())
+                same = torch.equal(va, vb) and (
+                    torch.equal(ia, ib) if exact else
+                    torch.equal(ia[va], ib[vb]))
+            if not same and first is None:
+                first = f"{kind}[{i}]"
+    return first, lost
+
+
+def _stream(net, cfg, frames, reset_counts, counts, dev, np, torch):
+    """8 scans through StreamingOdometry: (poses, launches, ms/scan
+    median of LOOKUP_TIMED after warm-up)."""
+    from rslo_tpu_torch.eval.streaming import StreamingOdometry
+    stream = StreamingOdometry(net, cfg, dev)
+    reset_counts()
+    for scan in frames:
+        stream.push(scan)
+    torch.cuda.synchronize()
+    got = counts()
+    poses = np.stack(stream.trajectory)
+    stream = StreamingOdometry(net, cfg, dev)
+    for scan in frames[:3]:
+        stream.push(scan)
+    scans = iter(frames * 3)
+    ms = median_ms(lambda: stream.push(next(scans)), LOOKUP_TIMED, torch)
+    return poses, got, ms
+
+
+def dropped_taps(rgeo, tgeo, ex, torch):
+    """(taps of the L0 submanifold rulebook that the tiled engine's halo
+    does not see, taps): an indicator voxel stream through a tiled subm
+    conv whose weights copy each tap's neighbour into its own channel,
+    against the rulebook's valid taps (the level's rows are the voxel
+    stream's, which the voxelizer emits sorted)."""
+    from rslo_tpu_torch.ops import tiled_conv as tc
+    rb = rgeo.sub_rb[0]
+    dev = rb.valid.device
+    mask = ex["voxel_mask"][0]
+    if not torch.equal(rgeo.levels[0].coords[mask], ex["coords"][0][mask]):
+        fail("25a: the voxel stream is not in the level's order")
+    w = torch.eye(27, device=dev)[:, None, :]          # (27, 1, 27)
+    ones = mask[:, None].float()
+    seen = tc.gather_voxels(tc.subm_conv(
+        tc.scatter_voxels(ones, tgeo.cell_index, tgeo.l0), tgeo.l0, w,
+        torch.zeros(27, device=dev)), tgeo.cell_index) > 0.5
+    valid = rb.valid & mask[:, None]
+    return int((valid & ~seen).sum()), int(valid.sum())
+
+
+def engine_option_phases(frames, cli, Trainer, counted, reset_counts,
+                         counts, evaluate, dev, smi_line, np, torch,
+                         eval_config=CONFIG, train_config=TRAIN_CONFIG,
+                         split=True):
+    """Phase 25, at ``eval_config``'s width on phase 4's seeded weights
+    and ``frames``.  (a) ``engine="tiles"``: streaming (no kernel of
+    B1-B5 launched), the middle's f32 output on the card against the
+    CPU and (read) against the rulebook engine's, the train verb for
+    TILES_STEPS steps at ``train_config`` (B3 launches a step, finite
+    loss, peak memory) and the evaluate verb from its checkpoint.
+    (b) each of LOOKUP_RUNS: the ranked strays, every scan's geometry
+    and the poses equal to the slot map's unless a ranked lookup
+    saturated, the geometry card vs CPU entry for entry, the plan build
+    and the streaming ms.  (c) ``plane_apply``: the middle's forward bit-equal to
+    the plain row path's, streaming.  (d, ``split``) the semi-global BN
+    in train mode over SG_LAYOUTS and the spatial gate over SP4 at 48
+    columns, as phase 24's ranks.  Returns each path's launches."""
+    from rslo_tpu_torch.config.schema import PipelineCfg
+    from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
+    from rslo_tpu_torch.geometry import np_compose_pose
+    from rslo_tpu_torch.models import middle as pm
+    from rslo_tpu_torch.models.net import OdomNet
+    from rslo_tpu_torch.ops import sparse_conv as sc
+    from rslo_tpu_torch.train import loop as train_loop
+    from rslo_tpu_torch.train.step import train_step
+    t_phase = time.perf_counter()
+    with open(eval_config) as fh:
+        ecfg = PipelineCfg.from_json(fh.read())
+    gen = torch.Generator().manual_seed(SEED)
+    net0 = OdomNet(ecfg, gen)
+    randomize_bn(net0, gen)
+    state = {k: v.clone() for k, v in net0.state_dict().items()}
+    del net0
+    zero = dict.fromkeys(counted, 0)
+    launches = {}
+
+    def middle_cfg(cfg, **kw):
+        return cfg.replace(middle=dataclasses.replace(cfg.middle, **kw))
+
+    def model(cfg):
+        m = OdomNet(cfg).to(dev)
+        m.load_state_dict(state)
+        return m.eval()
+
+    def example(cfg, scan):
+        pts = torch.as_tensor(scan, device=dev)
+        return prepare_example(pts[None], torch.ones(
+            1, len(scan), dtype=bool, device=dev), voxelizer_config(cfg),
+            mean_mode=True)
+
+    def check_stream(name, net, cfg, want):
+        poses, got, ms = _stream(net, cfg, frames, reset_counts, counts,
+                                 dev, np, torch)
+        if got != want:
+            fail(f"25 {name} stream: launches {got} != {want}")
+        if poses.shape != (len(frames), 7) or not np.isfinite(poses).all():
+            fail(f"25 {name} stream: bad trajectory {poses}")
+        return poses, got, ms
+
+    # -- 25a. the tiled engine ----------------------------------------------
+    tcfg_e = middle_cfg(ecfg, engine="tiles")
+    net_t = model(tcfg_e)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev) / 2 ** 20
+    poses, got, ms = check_stream("tiles", net_t, tcfg_e, zero)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    launches["tiles_stream_launches"] = got
+    pts = torch.as_tensor(np.stack(frames[:2]), device=dev)
+    two_ex = prepare_example(pts, torch.ones(pts.shape[:2], dtype=bool,
+                                             device=dev),
+                             voxelizer_config(tcfg_e), mean_mode=True)
+    with torch.no_grad():
+        two = net_t(two_ex)["odometry"][0].cpu().numpy()
+    expect = np_compose_pose(poses[0][None], two[None])[0]
+    if not np.allclose(poses[1], expect, **POSE_TOL):
+        fail(f"25a tiles: pose after scan 2 {poses[1]} != the two-frame "
+             f"forward {expect}")
+    ex0 = example(tcfg_e, frames[0])
+    c, m = ex0["coords"][0], ex0["voxel_mask"][0]
+    tgeo = net_t._middle_geometry(c, m, with_cov=False)
+    used = (int(tgeo.l0.tile_mask.sum()), int(tgeo.l1.tile_mask.sum()))
+    caps = (tgeo.l0.capacity, tgeo.l1.capacity)
+    geo_ms = median_ms(lambda: net_t._middle_geometry(c, m, False),
+                       LOOKUP_TIMED, torch)
+    say(f"[tiles] 8 scans streamed: no kernel of B1-B5 launched; "
+        f"{ms:.3f} ms/scan (median of {LOOKUP_TIMED} after warm-up, host "
+        f"clock); the tile geometry {geo_ms:.3f} ms; scan 0 holds "
+        f"{used[0]}/{caps[0]} L0 and {used[1]}/{caps[1]} L1 tiles; peak "
+        f"device memory {peak:.1f} MiB ({peak - live:.1f} above the "
+        f"{live:.1f} live); pose after scan 2 == the two-frame forward; "
+        f"{smi_line}")
+    del net_t
+    # the tiled middle, f32: on the card against the same module on the
+    # CPU (held), and against the rulebook engine (read, not held: the
+    # tiled halo drops a corner tap whose path runs through an inactive
+    # edge tile, in JAX's tiled engine too; ROADMAP C)
+    outs = {}
+    exs = [example(ecfg, f) for f in frames[:2]]
+    for engine in ("tiles", "rulebook"):
+        net = model(middle_cfg(ecfg, engine=engine, conv_dtype="f32",
+                               level_capacities=AMPLE_LEVELS,
+                               tile_capacities=AMPLE_TILES))
+        with torch.no_grad():
+            outs[engine] = [net.frame_features(
+                e["voxel_features"][0], e["coords"][0], e["voxel_mask"][0])
+                for e in exs]
+            geos = [net._middle_geometry(e["coords"][0], e["voxel_mask"][0])
+                    for e in exs]
+            if engine == "tiles":
+                full = [(bool(g.l0.tile_mask.all()),
+                         bool(g.l1.tile_mask.all())) for g in geos]
+                tgeos = geos
+            else:
+                # L0 holds the voxelizer's rows, the same for both
+                full = [tuple(bool(lv.mask.all()) for lv in g.levels[1:4])
+                        for g in geos]
+                rgeos = geos
+            two_ms = median_ms(lambda: net(two_ex), 3, torch)
+        outs[engine + "_ms"] = two_ms
+        if any(any(f) for f in full):
+            fail(f"25a: the {engine} engine's levels overflow at "
+                 f"{AMPLE_LEVELS}, {AMPLE_TILES}: {full}")
+        del net
+    reads = []
+    for k, ((bt, ct), (br, cr)) in enumerate(zip(outs["tiles"],
+                                                 outs["rulebook"])):
+        lost, taps = dropped_taps(rgeos[k], tgeos[k], exs[k], torch)
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in ((bt, br), (ct, cr))]
+        reads.append(f"scan {k}: BEV {rel[0]:.2e}, covariances {rel[1]:.2e} "
+                     f"of the largest value, {lost} of {taps} L0 "
+                     f"submanifold taps dropped by the tiled halo")
+    say(f"[tiles] the middle, f32, at capacities {AMPLE_LEVELS}, tiles "
+        f"{AMPLE_TILES} (no level full), tiled vs rulebook (read, not "
+        f"held): " + "; ".join(reads) + f"; the two-frame forward "
+        f"{outs['tiles_ms']:.3f} ms tiled, {outs['rulebook_ms']:.3f} ms "
+        f"rulebook (median of 3, host clock); {smi_line}")
+    cfg32 = middle_cfg(ecfg, engine="tiles", conv_dtype="f32")
+    card, host = model(cfg32), OdomNet(cfg32)
+    host.load_state_dict(state)
+    host.eval()
+    e = exs[1]
+    args = (e["voxel_features"][0], e["coords"][0], e["voxel_mask"][0])
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        got = card.frame_features(*args)
+        want = host.frame_features(*(a.cpu() for a in args))
+    host_s = time.perf_counter() - t0
+    rel = [float((a.cpu() - b).abs().max() / b.abs().max())
+           for a, b in zip(got, want)]
+    say(f"[tiles] the middle, f32, shipped capacities, scan 1: card vs CPU "
+        f"BEV {rel[0]:.2e}, covariances {rel[1]:.2e} of the largest value "
+        f"(held to {TILES_TOL:g}); the CPU's forward {host_s:.1f} s; "
+        f"{smi_line}")
+    if max(rel) > TILES_TOL:
+        fail(f"25a: the tiled middle differs card vs CPU: {rel}")
+    del card, host
+    # the train verb, then the evaluate verb from its checkpoint
+    tcfg, _ = option_configs(PipelineCfg, {}, train_config, eval_config)
+    tcfg = middle_cfg(tcfg, engine="tiles")
+    shutil.rmtree(TILES_DIR, ignore_errors=True)
+    os.makedirs(TILES_DIR)
+    cfg_path = os.path.join(TILES_DIR, "train.json")
+    run_dir = os.path.join(TILES_DIR, "run")
+    with open(cfg_path, "w") as fh:
+        fh.write(tcfg.to_json())
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    live = torch.cuda.memory_allocated(dev) / 2 ** 20
+    t0 = time.perf_counter()
+    with StepRecorder(train_loop, counts, torch) as rec:
+        st = cli.main(["train", "--config", cfg_path, "--model_dir",
+                       run_dir, "--synthetic", "--steps", str(TILES_STEPS)])
+    torch.cuda.synchronize()
+    verb_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 20
+    launches["tiles_train_launches"] = total = counts()
+    if st.step != TILES_STEPS or len(rec.records) != TILES_STEPS:
+        fail(f"25a tiles train: ended at {st.step}, {len(rec.records)} "
+             f"steps recorded")
+    for k, ((warm, got, ms), met) in enumerate(zip(rec.records,
+                                                   rec.metrics)):
+        want = predicted_launches([], tcfg, warm)
+        loss = float(met["loss"])
+        say(f"[tiles train] step {k} ({'warmup' if warm else 'post-warmup'}"
+            f"): {ms:.3f} ms (host clock, synchronized), loss {loss:.5f}, "
+            f"grad_norm {float(met['grad_norm']):.4f}, launches {got}")
+        if got != want or not math.isfinite(loss):
+            fail(f"25a tiles train step {k}: launches {got}, predicted "
+                 f"{want}; loss {loss}")
+    say(f"[tiles train] the verb's {TILES_STEPS} steps in {verb_s:.2f} s; "
+        f"peak device memory {peak:.1f} MiB ({peak - live:.1f} above the "
+        f"{live:.1f} live), B3 {total['nn_search']} launches; {smi_line}")
+    launches["tiles_eval_launches"] = evaluate("tiles", run_dir, None,
+                                               tcfg_e)
+    shutil.rmtree(TILES_DIR, ignore_errors=True)
+
+    # -- 25b. the plan lookups ---------------------------------------------
+    strays = []
+    ranked = sc._lookup_ranked
+
+    def counting_ranked(level, q, v, *a, **kw):
+        strays.append(sc.ranked_strays(level, q, v))
+        return ranked(level, q, v, *a, **kw)
+
+    base = {}
+    for engine in ("rulebook", "band"):
+        cfg_b = middle_cfg(ecfg, engine=engine)
+        net = model(cfg_b)
+        kernel = "gather_matmul" if engine == "rulebook" else "band_matmul"
+        want = dict(zero, **{kernel: ENCODER_CONVS * len(frames)})
+        poses, _, ms = check_stream(engine, net, cfg_b, want)
+        ex = [example(cfg_b, f) for f in frames]
+        geos = [net._middle_geometry(e["coords"][0], e["voxel_mask"][0])
+                for e in ex]
+        build = median_ms(lambda: net._middle_geometry(
+            ex[0]["coords"][0], ex[0]["voxel_mask"][0]), LOOKUP_TIMED, torch)
+        base[engine] = (poses, geos, ex, want)
+        say(f"[lookup] {engine} slot_map: plan build {build:.3f} ms, "
+            f"streaming {ms:.3f} ms/scan (medians of {LOOKUP_TIMED}, host "
+            f"clock); {smi_line}")
+        del net
+    for name, engine, lookup in LOOKUP_RUNS:
+        cfg_l = middle_cfg(ecfg, engine=engine, plan_lookup=lookup)
+        net = model(cfg_l)
+        poses0, geos0, ex, want = base[engine]
+        sc._lookup_ranked = counting_ranked
+        try:
+            strays.clear()
+            geos = [net._middle_geometry(e["coords"][0], e["voxel_mask"][0])
+                    for e in ex]
+            per_call = [int(x) for x in strays]
+        finally:
+            sc._lookup_ranked = ranked
+        n_stray, n_calls = sum(per_call), len(per_call)
+        saturated = sum(x > STRAY_CAPACITY for x in per_call)
+        diffs = [_geometry_diff(g, g0, torch) for g, g0 in zip(geos, geos0)]
+        differ = [i for i, (bad, _) in enumerate(diffs) if bad]
+        lost = sum(n for _, n in diffs)
+        if differ and not saturated:
+            fail(f"25b {name}: scan {differ[0]}'s {diffs[differ[0]][0]} "
+                 f"differs from the slot-map geometry with no saturated "
+                 f"ranked lookup")
+        # the contract, saturated output included: the card's geometry
+        # equal, entry for entry, to the same lookup's on the CPU
+        host = OdomNet(cfg_l).eval()
+        for i in range(CPU_LOOKUP_SCANS):
+            bad, _ = _geometry_diff(geos[i], host._middle_geometry(
+                ex[i]["coords"][0].cpu(), ex[i]["voxel_mask"][0].cpu()),
+                torch, exact=True)
+            if bad:
+                fail(f"25b {name}: scan {i}'s {bad} differs card vs CPU")
+        del host
+        build = median_ms(lambda: net._middle_geometry(
+            ex[0]["coords"][0], ex[0]["voxel_mask"][0]), LOOKUP_TIMED, torch)
+        poses, got, ms = check_stream(name, net, cfg_l, want)
+        launches[f"lookup_{name}_stream_launches"] = got
+        if not differ and not np.array_equal(poses, poses0):
+            fail(f"25b {name}: the streamed poses differ from the "
+                 f"slot-map engine's by {np.abs(poses - poses0).max():.3e}")
+        versus = ("the geometry of every scan and the poses equal to the "
+                  "slot map's" if not differ else
+                  f"scans {differ} differ from the slot map's ({lost} "
+                  f"valid taps of its raw rulebooks missing; the first "
+                  f"difference {diffs[differ[0]][0]}), the poses by "
+                  f"{np.abs(poses - poses0).max():.3e}")
+        say(f"[lookup] {name} ({engine}), {len(frames)} scans: "
+            f"{n_stray} strays in {n_calls} ranked lookups, {saturated} "
+            f"past the capacity {STRAY_CAPACITY} (at most "
+            f"{max(per_call, default=0)} in one); {versus}; card vs CPU "
+            f"entry for entry on {CPU_LOOKUP_SCANS} scans; plan build "
+            f"{build:.3f} ms, streaming {ms:.3f} ms/scan (medians of "
+            f"{LOOKUP_TIMED}, host clock); {smi_line}")
+        del net
+
+    # -- 25c. plane_apply ---------------------------------------------------
+    cfg_p = middle_cfg(ecfg, plane_apply=True)
+    net_p = model(cfg_p)
+    net_r = model(ecfg)
+    e = base["rulebook"][2][0]
+    args = (e["voxel_features"][0], e["coords"][0], e["voxel_mask"][0])
+    reset_counts()
+    with torch.no_grad():
+        bev_p, cov_p = net_p.frame_features(*args)
+    torch.cuda.synchronize()
+    got = counts()
+    gm = pm.gather_matmul
+
+    def plain(features, idx, valid, weights, bias, out_mask, dtype):
+        # the 27-tap convs' row apply; the z collapse through B1 on
+        # both paths
+        if weights.shape[0] != 27:
+            return gm(features, idx, valid, weights, bias, out_mask, dtype)
+        return sc.sparse_conv_apply(features, sc.ConvIndex(idx, valid),
+                                    weights, bias, out_mask, dtype)
+    pm.gather_matmul = plain
+    try:
+        with torch.no_grad():
+            bev_r, cov_r = net_r.frame_features(*args)
+    finally:
+        pm.gather_matmul = gm
+    if got != dict(zero, gather_matmul=1):
+        fail(f"25c plane_apply: a frame launched {got}, expected the "
+             f"z collapse's one gather_matmul")
+    if not (torch.equal(bev_p, bev_r) and torch.equal(cov_p, cov_r)):
+        fail(f"25c plane_apply: the middle differs from the plain row "
+             f"path by {float((bev_p - bev_r).abs().max()):.3e} (BEV), "
+             f"{float((cov_p - cov_r).abs().max()):.3e} (cov)")
+    want = dict(zero, gather_matmul=len(frames))
+    poses, got, ms = check_stream("plane_apply", net_p, cfg_p, want)
+    launches["plane_apply_stream_launches"] = got
+    say(f"[plane_apply] the middle's BEV and covariances of scan 0 "
+        f"bit-equal to the plain row path's (19 of 20 convs through the "
+        f"plane apply or the row apply, the z collapse through B1 on "
+        f"both); streaming {ms:.3f} "
+        f"ms/scan (median of {LOOKUP_TIMED}, host clock), one B1 launch a "
+        f"scan; {smi_line}")
+    del net_p, net_r
+    if split:
+        launches.update(split_option_phases(ecfg, frames, reset_counts,
+                                            counts, dev, smi_line, np,
+                                            torch))
+    say(f"[phase 25] {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def split_option_phases(ecfg, frames, reset_counts, counts, dev, smi_line,
+                        np, torch, backend="gloo"):
+    """Phase 25d: ``split_rank`` jobs on SPLIT_RANKS gloo ranks sharing
+    the card, each against this process's unsplit forward on ``dev``
+    (SPLIT_REL_TOL's f32 bound, maps and the BEV net's buffers; each
+    rank's launches those of the unsplit forward): the semi-global BN
+    in train mode over SG_LAYOUTS, and the spatial gate over SP4 at 48
+    BEV columns.  Returns rank 0's launches a layout."""
+    from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
+    from rslo_tpu_torch.models.net import OdomNet
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    os.makedirs(SPLIT_DIR)
+    f32 = dict(middle=dataclasses.replace(ecfg.middle, conv_dtype="f32"))
+    pr = ecfg.voxelizer.point_cloud_range
+    narrow = (-WIDE_HALO_X,) + tuple(pr[1:3]) + (WIDE_HALO_X,) + \
+        tuple(pr[4:])
+    jobs = (("sgbn", ecfg.replace(**f32, odom=dataclasses.replace(
+                ecfg.odom, compute_dtype="fp32",
+                bn_type="semiglobal_sync_bn")), SG_LAYOUTS, True),
+            ("wide_sa", ecfg.replace(
+                **f32, voxelizer=dataclasses.replace(
+                    ecfg.voxelizer, point_cloud_range=narrow),
+                odom=dataclasses.replace(ecfg.odom, compute_dtype="fp32",
+                                         use_sa=True)), ("sp4",), False))
+    specs, refs = [], {}
+    for tag, cfg, layouts, train in jobs:
+        gen = torch.Generator().manual_seed(SEED)
+        net = OdomNet(cfg, gen)
+        randomize_bn(net, gen)
+        state = {k: v.clone() for k, v in net.state_dict().items()}
+        pts = torch.as_tensor(np.stack(frames[:2]), device=dev)
+        ex = prepare_example(pts, torch.ones(pts.shape[:2], dtype=bool,
+                                             device=dev),
+                             voxelizer_config(cfg), mean_mode=True)
+        model = OdomNet(cfg).to(dev)
+        model.load_state_dict(state)
+        model.train(train)
+        reset_counts()
+        with torch.no_grad():
+            preds = model(ex)
+        torch.cuda.synchronize()
+        refs[tag] = dict(
+            launches=counts(),
+            maps={k: preds[k].float().cpu().numpy() for k in SPLIT_KEYS},
+            buffers={k: v.cpu().numpy().copy() for k, v in
+                     model.bev_net.named_buffers()} if train else None)
+        del model
+        torch.save(state, os.path.join(SPLIT_DIR, f"{tag}_state.pt"))
+        torch.save({k: v.cpu() for k, v in ex.items()},
+                   os.path.join(SPLIT_DIR, f"{tag}_example.pt"))
+        specs.append(dict(tag=tag,
+                          state=os.path.join(SPLIT_DIR, f"{tag}_state.pt"),
+                          example=os.path.join(SPLIT_DIR,
+                                               f"{tag}_example.pt"),
+                          configs={"f32": cfg.to_json()}, layouts=layouts,
+                          train=train, timed=SPLIT_JOB_TIMED))
+    rdv = f"file://{os.path.join(SPLIT_DIR, 'rendezvous25')}"
+    t0 = time.perf_counter()
+    ranks = run_dp_ranks([dict(
+        rank=r, world=SPLIT_RANKS, rdv=rdv, backend=backend,
+        device=str(dev), jobs=specs,
+        out=os.path.join(SPLIT_DIR, f"rank25_{r}.pt"))
+        for r in range(SPLIT_RANKS)], torch, entry="split_rank",
+        phase="phase 25d")
+    say(f"[split 25d] {SPLIT_RANKS} {backend} ranks on the one card: "
+        f"{time.perf_counter() - t0:.1f} s, process start and library "
+        f"loads included")
+    tol = SPLIT_REL_TOL["f32"]
+    launches = {}
+    for tag, cfg, layouts, train in jobs:
+        W = refs[tag]["maps"]["tq_map"].shape[2]
+        for name in layouts:
+            worst = {}
+            for r, res in enumerate(ranks):
+                got = res[tag, "f32", name]
+                if got["launches"] != refs[tag]["launches"]:
+                    fail(f"25d {tag} {name} rank {r}: launches "
+                         f"{got['launches']}, the unsplit forward's "
+                         f"{refs[tag]['launches']}")
+                pairs = [(k, got["maps"][k], refs[tag]["maps"][k])
+                         for k in SPLIT_KEYS]
+                if train:
+                    pairs += [(k, got["buffers"][k], v) for k, v in
+                              refs[tag]["buffers"].items()]
+                for k, g, w in pairs:
+                    if g.shape != w.shape:
+                        fail(f"25d {tag} {name} rank {r}: {k} shape "
+                             f"{g.shape}, unsplit {w.shape}")
+                    rel = float(np.abs(g - w).max()) / max(
+                        float(np.abs(w).max()), 1e-30)
+                    key = "buffers" if k not in SPLIT_KEYS else k
+                    worst[key] = max(worst.get(key, 0.0), rel)
+                    if not rel <= tol:
+                        fail(f"25d {tag} {name} rank {r}: {k} off the "
+                             f"unsplit forward by {rel:.3e} of its largest "
+                             f"value (> {tol:g})")
+            ms = ", ".join(
+                f"{statistics.median(res[tag, 'f32', name]['ms']):.3f}"
+                for res in ranks)
+            say(f"[split 25d] {tag} {name}, f32, "
+                f"{'train' if train else 'eval'} mode, BEV width {W}: per "
+                f"rank {ms} ms a forward (host clock, gloo, {SPLIT_RANKS} "
+                f"ranks sharing the card); max |diff| / max |unsplit|: "
+                + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                + f" (held to {tol:g}); {smi_line}")
+            launches[f"split25_{tag}_{name}_launches"] = \
+                ranks[0][tag, "f32", name]["launches"]
+    shutil.rmtree(SPLIT_DIR, ignore_errors=True)
     return launches
 
 
@@ -4911,6 +5516,15 @@ def main():
         lambda: cli.main(["bench"]), counted, reset_counts, counts, dev,
         smi_line, np, torch, frames[0]))
 
+    # -- 25. the middle's engine options; the split's semi-global BN -------
+    more.update(engine_option_phases(
+        frames, cli, Trainer, counted, reset_counts, counts,
+        lambda name, model_dir, kernel, cfg_: evaluate_and_check(
+            name, model_dir, kernel, cfg_, cli, Trainer, counted,
+            reset_counts, counts, prepare_example, voxelizer_config(cfg_),
+            dev, smi_line, np, torch),
+        dev, smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -4936,7 +5550,10 @@ def main():
                      # phase 23's train verb on NCCL at world size 1
                      # and rank 0's Trainer.fit over the gloo ranks;
                      # phase 24's split forwards (rank 0's, bf16) and
-                     # the bench verb
+                     # the bench verb; phase 25's tiled engine
+                     # (streaming, the train verb, the evaluate verb),
+                     # the plan lookups' and plane_apply's streaming and
+                     # its split forwards (rank 0's, f32)
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

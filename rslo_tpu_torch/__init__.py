@@ -10,10 +10,10 @@ there, even a pure-Python one, it keeps as its own copy (``config``,
 and matplotlib are imported only where a store is opened or a plot
 drawn.
 
-What it has (everything the JAX package does, apart from three modules
-left out by decision: ``config/registry.py``, whose place the ``VFES``
-dict and ``OdomNet``'s dispatch take, ``utils/jax_cache.py``, XLA's
-compile cache, and ``ops/tiled_conv.py`` with ``engine="tiles"``):
+What it has (everything the JAX package does, apart from two modules
+with nothing to port: ``config/registry.py``, whose place the ``VFES``
+dict and ``OdomNet``'s dispatch take, and ``utils/jax_cache.py``, XLA's
+compile cache):
   config            — the pipeline's configuration schema
   utils             — synthetic LiDAR scans and the raycast world, the
                       metric logger and its TensorBoard event writer,
@@ -24,19 +24,23 @@ compile cache, and ``ops/tiled_conv.py`` with ``engine="tiles"``):
                       mean shift; numpy pose helpers (transforms)
   ops.voxelize      — the point-stack voxelizer (ground filter), the
                       sorted and sort-free mean paths, the numpy oracle
-  ops.sparse_conv   — sorted levels + slot-map rulebooks (and their
-                      transposes), plain conv apply and its gradient
+  ops.sparse_conv   — sorted levels + rulebooks (and their transposes)
+                      by every lookup of the schema, the plain conv
+                      apply and its gradient, the plane apply
   ops.dma_gather    — the hand-written Hopper kernels of the sparse conv
                       (csrc/gather_matmul.cu, csrc/row_gather.cu) and
                       the differentiable ``sparse_conv``
   ops.band_conv     — banded window plans and the band engine's conv
                       (csrc/band_conv.cu) with its gradient
+  ops.tiled_conv    — the tiled engine: tile geometry, halos, cuDNN
+                      3-D convs over tile blocks and dense levels
   ops.chamfer       — the chamfer NN search (csrc/nn_search.cu)
   data              — example preparation, KITTI parsing, the HDF5
                       store (build and read), normals (native build),
                       window datasets, augmentation, the train loader
-  models            — SparseMiddleCov (rulebook, band), PillarMiddleCov,
-                      DenseMiddleCov, the VFEs, BEVOdomNet with every
+  models            — SparseMiddleCov (rulebook, band, tiles),
+                      PillarMiddleCov, DenseMiddleCov, the VFEs,
+                      BEVOdomNet with every
                       option of the schema, OdomNet; eval and train mode
   parallel          — spatial and tensor parallelism of the BEV stage
                       over a (space x model) grid of ranks

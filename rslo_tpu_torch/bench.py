@@ -23,8 +23,8 @@ RSLO_BENCH_ENGINE overrides the sparse engine; RSLO_BENCH_BUDGET
 (seconds, default 1500) skips the sparse stage once the pillar stage
 has spent it; RSLO_BENCH_STREAMING adds the streaming numbers;
 RSLO_BAND_MIN_CHANNELS and RSLO_PLAN_LOOKUP set the middle's
-``band_min_channels`` and ``plan_lookup`` (a lookup the port does not
-have raises, as the schema's users do).
+``band_min_channels`` and ``plan_lookup`` (a name outside
+``ops.sparse_conv.LOOKUP_METHODS`` raises ``ValueError``, as in JAX).
 
 Timing: JAX chains the iterates inside one jit, each input perturbed
 by the carry so that XLA cannot fold the chain.  Here the iterates are

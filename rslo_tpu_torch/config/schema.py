@@ -3,10 +3,7 @@
 
 Frozen dataclasses with the same names, fields, defaults and JSON form
 as the JAX package's, so one JSON file configures both packages.  Field
-defaults reproduce the reference's deployed workload.  Values the port
-does not run (``middle.engine="tiles"``, the other plan lookups,
-``plane_apply``) are kept so that every config file still loads; the
-modules that would use them raise ``NotImplementedError``.
+defaults reproduce the reference's deployed workload.
 """
 from __future__ import annotations
 
@@ -44,9 +41,9 @@ class MiddleCfg:
     num_input_features: int = 7
     # execution engine of SparseMiddleCov: "rulebook" (sorted levels +
     # gather-matmul), "band" (rulebook geometry + banded window plans,
-    # ops/band_conv.py) or "tiles" (not ported)
+    # ops/band_conv.py) or "tiles" (dense tile blocks, ops/tiled_conv.py)
     engine: str = "rulebook"
-    # rulebook lookup method; the port runs "slot_map" only
+    # rulebook lookup method, one of ops/sparse_conv.py::LOOKUP_METHODS
     plan_lookup: str = "slot_map"
     # band engine: out-row block size and (subm, down, inverse) window
     # widths, which should cover the per-block spread of the in rows
@@ -58,7 +55,7 @@ class MiddleCfg:
     # rulebooks whose widest conv is narrower than this stay raw
     # rulebooks (gather-matmul); 0 gives every rulebook a band plan
     band_min_channels: int = 0
-    # tiled engine (not ported): active-tile capacities and tile shape
+    # tiled engine: active-tile capacities (L0, L1) and tile shape
     tile_capacities: Tuple[int, ...] = (16384, 8192)
     tile_shape: Tuple[int, ...] = (2, 8, 8)
     # static per-level voxel capacities (level 0 = full res)
@@ -69,7 +66,7 @@ class MiddleCfg:
     # conv compute dtype of the sparse engines ("bf16" | "f32"), with
     # fp32 accumulation either way
     conv_dtype: str = "bf16"
-    # plane-grouped slice-gather conv apply (not ported)
+    # plane-grouped slice-gather conv apply of the 27-tap rulebook convs
     plane_apply: bool = False
 
 

@@ -44,12 +44,12 @@ from ..config.schema import OdomCfg
 from ..geometry import (decode_tq_map, grid_cell_coords, hemisphere,
                         matrix_to_quat, qnormalize, rotate_vec_by_q,
                         weighted_kabsch)
-from ..parallel.spatial import (gather_width, global_width, local_columns,
-                                space_split)
+from ..parallel.spatial import (batch_moments, gather_width, global_width,
+                                local_columns, space_split)
 from ..parallel.spatial import pad_same as _pad_same
 from ..parallel.tensor import (bev_mean, channel_range, gather_channels,
                                local_channels, model_split)
-from ..utils.mesh_axis import pmean_if_present, psum_if_present
+from ..utils.mesh_axis import pmean_if_present
 from .attention import SELayer, SpatialAttention
 from .middle import update_running_stats
 from .semiglobal_bn import SemiGlobalSyncBN
@@ -180,7 +180,7 @@ class Norm(nn.Module):
         # under a model split this rank's slice of the channels
         lo, hi = (0, c) if x.shape[1] == c else channel_range(c)
         if self.training:
-            mean, m2 = _batch_moments(xf)
+            mean, m2 = batch_moments(xf)
             if self.bn_type == "sync_bn":
                 mean = pmean_if_present(mean, "data")
                 m2 = pmean_if_present(m2, "data")
@@ -197,17 +197,6 @@ class Norm(nn.Module):
                                                   self.eps)
         y = y * self.scale[lo:hi].view(shape) + self.bias[lo:hi].view(shape)
         return y.to(x.dtype)
-
-
-def _batch_moments(xf: torch.Tensor):
-    """E[x] and E[x^2] per channel over (N, H, W); under a space split
-    the sums over the ranks divided by the global count."""
-    if not space_split():
-        return (torch.mean(xf, dim=(0, 2, 3)),
-                torch.mean(xf * xf, dim=(0, 2, 3)))
-    n = xf.shape[0] * xf.shape[2] * global_width(xf.shape[3])
-    return (psum_if_present(torch.sum(xf, dim=(0, 2, 3)), "space") / n,
-            psum_if_present(torch.sum(xf * xf, dim=(0, 2, 3)), "space") / n)
 
 
 class BasicBlock(nn.Module):

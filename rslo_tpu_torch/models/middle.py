@@ -1,5 +1,5 @@
 """Sparse 3D middle feature extractor + per-voxel covariance decoder
-(counterpart of ``rslo_tpu/models/middle.py``; rulebook and band
+(counterpart of ``rslo_tpu/models/middle.py``; rulebook, band and tiled
 engines).
 
 Channel plan: 16-16 @ full res -> 32-32 @ 1/2 -> 64s @ 1/4, 1/8 ->
@@ -7,7 +7,7 @@ z-collapse -> dense BEV at 1/8 with C*D channels, plus an inverse-conv
 decoder from the 1/4-res level back to full resolution emitting 7
 covariance parameters per active voxel.
 
-Two engines share one parameter tree:
+Three engines share one parameter tree:
   * ``engine="rulebook"``: each of the 20 sparse convs runs through the
     Hopper kernel ``ops.dma_gather.gather_matmul``; in train mode
     through ``ops.dma_gather.sparse_conv``, whose backward runs over the
@@ -17,11 +17,20 @@ Two engines share one parameter tree:
     runs through ``band_conv_apply`` (kernel B4); in train mode through
     ``band_conv``.  Rulebooks narrower than ``band_min_channels`` stay
     raw and go through the rulebook kernels.
-``engine="tiles"`` is not ported, by decision.
+  * ``engine="tiles"``: ``build_tiled_geometry`` lays levels 0-1 out as
+    blocks of dense tiles and levels 2-4 as dense grids
+    (``ops.tiled_conv``); every conv is a cuDNN convolution in float32,
+    differentiable by autograd.
+The rulebook lookup (``plan_lookup``, ``ops.sparse_conv.LOOKUP_METHODS``)
+changes how the rulebooks are built, not what they hold.  With
+``plane_apply`` the 27-tap rulebook convs without a band plan run
+``ops.sparse_conv.sparse_conv_apply_planes`` instead of the gather-GEMM
+kernel, in both modes (autograd takes its gradient).
 
-``MiddleCfg.remat`` is accepted and not applied: the port's sparse
-convs keep only their (V, Cin) inputs for the backward, so the middle's
-activations stay small against the card's memory (``PERF.md``).
+``MiddleCfg.remat`` is accepted and not applied: the port's rulebook
+and band convs keep only their (V, Cin) inputs for the backward, so the
+middle's activations stay small against the card's memory; the tiled
+engine's convs keep their halo-extended blocks (``PERF.md``).
 
 Submodules carry the flax auto-names of the reference (``SpConv_<i>``,
 ``MaskedBatchNorm_<i>``, in creation order), so ``convert.py`` maps
@@ -38,6 +47,7 @@ from torch import nn
 from ..config.schema import MiddleCfg
 from ..ops import band_conv as bc
 from ..ops import sparse_conv as sc
+from ..ops import tiled_conv as tc
 from ..ops.dma_gather import gather_matmul, sparse_conv
 from ..utils.mesh_axis import psum_if_present
 
@@ -74,14 +84,26 @@ def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
                    inverse: bool = True) -> FrameGeometry:
     """coords: (V, 3) zyx int32; sparse_shape: (nz, ny, nx) with the +1
     on z applied; capacities: per-level caps (L4 reuses the L3 one).
-    Lookups go through dense slot maps (``lookup`` None or
-    "slot_map").  ``transposed`` also builds the rulebooks the backward
-    needs (and L4's slot map, which they look up); ``inverse=False``
-    skips the covariance decoder's inverse rulebooks."""
-    if lookup not in (None, "slot_map"):
-        raise NotImplementedError(
-            f"plan_lookup={lookup!r} is not ported; only 'slot_map'")
-    l0 = sc.with_slot_map(sc.level_from_coords(coords, mask, sparse_shape))
+
+    lookup: None/"slot_map" (dense slot maps, one gather per (row,
+    tap)), "ranked" (windowed ranks, no slot maps), "ranked_planes" /
+    "sorted_planes" (one rank query per (dz, dy) kernel plane, the x
+    taps derived; the ranks windowed or by binary search, no slot maps)
+    or "slot_planes" (one 4-entry slot-map segment per plane).  The
+    rulebooks without a plane form (z collapse, inverse, transposed)
+    take the matching elementwise lookup.  ``transposed`` also builds
+    the rulebooks the backward needs (and, with slot maps, L4's, which
+    they look up); ``inverse=False`` skips the covariance decoder's
+    inverse rulebooks."""
+    no_slot = lookup in ("ranked", "ranked_planes", "sorted_planes")
+    planes = lookup in ("ranked_planes", "sorted_planes")
+    slot_planes = lookup == "slot_planes"
+    rank_method = "ranked" if lookup == "ranked_planes" else "sorted"
+    elt_lookup = ("ranked" if lookup == "ranked_planes" else
+                  None if lookup in ("sorted_planes", "slot_planes")
+                  else lookup)
+    attach = (lambda lv: lv) if no_slot else sc.with_slot_map
+    l0 = attach(sc.level_from_coords(coords, mask, sparse_shape))
     levels = [l0]
     down_rb = []
     caps = list(capacities) + [capacities[-1]]
@@ -89,23 +111,46 @@ def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
         nxt = sc.downsample_level(levels[-1], k, s, p,
                                   out_capacity=caps[min(i + 1, len(caps) - 1)])
         if transposed or i < len(DOWN_SPECS) - 1:
-            nxt = sc.with_slot_map(nxt)   # L4 is looked up only by
-                                          # the transposed rulebooks
-        down_rb.append(sc.build_conv_index(levels[-1], nxt, k, s, p))
+            nxt = attach(nxt)   # L4 is looked up only by the transposed
+                                # rulebooks
+        if planes and k[2] == 3 and p[2] == 1:
+            down_rb.append(sc.build_conv_index_planes(
+                levels[-1], nxt, k, s, p, rank_method=rank_method))
+        elif slot_planes and k[2] == 3 and p[2] == 1:
+            down_rb.append(sc.build_conv_index_slot_planes(
+                levels[-1], nxt, k, s, p))
+        else:
+            down_rb.append(sc.build_conv_index(levels[-1], nxt, k, s, p,
+                                               lookup=elt_lookup))
         levels.append(nxt)
-    sub_rb = tuple(sc.build_submanifold_index(lv) for lv in levels[:4])
+    if planes:
+        sub_rb = tuple(sc.build_submanifold_index_planes(
+            lv, rank_method=rank_method) for lv in levels[:4])
+    elif slot_planes:
+        sub_rb = tuple(sc.build_submanifold_index_slot_planes(lv)
+                       for lv in levels[:4])
+    else:
+        sub_rb = tuple(sc.build_submanifold_index(lv, lookup=elt_lookup)
+                       for lv in levels[:4])
     inv_rb = ()
     if inverse:
         inv_rb = (
-            sc.build_inverse_index(levels[2], levels[1], *DOWN_SPECS[1]),
-            sc.build_inverse_index(levels[1], levels[0], *DOWN_SPECS[0]))
+            sc.build_inverse_index(levels[2], levels[1], *DOWN_SPECS[1],
+                                   lookup=elt_lookup),
+            sc.build_inverse_index(levels[1], levels[0], *DOWN_SPECS[0],
+                                   lookup=elt_lookup))
     down_rb_t = None
     if transposed:
         down_rb_t = tuple(
-            sc.build_inverse_index(levels[i + 1], levels[i], *spec)
+            sc.build_inverse_index(levels[i + 1], levels[i], *spec,
+                                   lookup=elt_lookup)
             for i, spec in enumerate(DOWN_SPECS))
     return FrameGeometry(tuple(levels), sub_rb, tuple(down_rb), inv_rb,
                          down_rb_t)
+
+
+# the tiled engine's per-frame geometry, at JAX's module path
+build_tiled_geometry = tc.build_tiled_geometry
 
 
 def build_band_geometry(coords: torch.Tensor, mask: torch.Tensor,
@@ -176,22 +221,67 @@ class ConvOp(NamedTuple):
     plan: Optional[bc.BandIndex] = None
 
 
+# ---- the tiled engine's op descriptors ------------------------------------
+
+class SubmOp(NamedTuple):
+    lvl: tc.TileLevel
+
+
+class DownOp(NamedTuple):
+    fine: tc.TileLevel
+    coarse: tc.TileLevel
+
+
+class DownDenseOp(NamedTuple):
+    fine: tc.TileLevel
+    out_pad_shape: tuple
+    occ_out: torch.Tensor
+
+
+class DenseSubmOp(NamedTuple):
+    occ: torch.Tensor
+
+
+class DenseDownOp(NamedTuple):
+    occ_out: torch.Tensor
+    kernel: tuple
+    stride: tuple
+    padding: tuple
+
+
+class InvDenseOp(NamedTuple):
+    fine: tc.TileLevel
+
+
+class InvTileOp(NamedTuple):
+    coarse: tc.TileLevel
+    fine: tc.TileLevel
+
+
 class SpConv(nn.Module):
     """One sparse conv layer: kernel (taps, Cin, Cout) + bias, applied
-    through a band plan by ``band_conv_apply`` or through a rulebook by
-    the gather-GEMM kernel."""
+    through a band plan by ``band_conv_apply``, through a rulebook by
+    the gather-GEMM kernel (or the plane apply), or through a tiled op
+    by ``ops.tiled_conv``."""
 
     def __init__(self, in_features: int, features: int, taps: int,
-                 dtype: str = "bf16"):
+                 dtype: str = "bf16", plane_apply: bool = False):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(taps, in_features, features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.compute_dtype = (torch.bfloat16 if dtype == "bf16"
                               else torch.float32)
+        self.plane_apply = plane_apply and taps == 27
 
-    def forward(self, feats: torch.Tensor, op: ConvOp,
+    def forward(self, feats: torch.Tensor, op,
                 out_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if not isinstance(op, ConvOp):
+            return _tiled_conv(feats, op, self.kernel, self.bias)
         train = self.training and torch.is_grad_enabled()
+        if op.plan is None and self.plane_apply:
+            return sc.sparse_conv_apply_planes(
+                feats, op.rb, self.kernel, self.bias, out_mask,
+                self.compute_dtype)
         if op.plan is not None:
             if train:
                 return bc.band_conv(feats, op.plan, self.kernel, self.bias,
@@ -212,8 +302,31 @@ class SpConv(nn.Module):
                              self.bias, out_mask, self.compute_dtype)
 
 
+def _tiled_conv(feats, op, w, b) -> torch.Tensor:
+    """The tiled engine's conv of op descriptor ``op`` (float32)."""
+    if isinstance(op, SubmOp):
+        return tc.subm_conv(feats, op.lvl, w, b)
+    if isinstance(op, DownOp):
+        return tc.down_conv(feats, op.fine, op.coarse, w, b)
+    if isinstance(op, DownDenseOp):
+        return tc.down_to_dense(feats, op.fine, op.out_pad_shape, w, b,
+                                op.occ_out)
+    if isinstance(op, DenseSubmOp):
+        return tc.dense_subm_conv(feats, op.occ, w, b)
+    if isinstance(op, DenseDownOp):
+        return tc.dense_down_conv(feats, op.occ_out, w, b, op.kernel,
+                                  op.stride, op.padding)
+    if isinstance(op, InvDenseOp):
+        return tc.inverse_from_dense(feats, op.fine, w, b)
+    if isinstance(op, InvTileOp):
+        return tc.inverse_from_tiles(feats, op.coarse, op.fine, w, b)
+    raise TypeError(f"unknown conv op {type(op)}")
+
+
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm over the valid rows of a (V, C) feature array.  Train
+    """BatchNorm over the valid rows of a (V, C) feature array (or of an
+    N-D block or grid with channels last and a mask of its shape, as
+    the tiled engine's levels are).  Train
     mode normalizes with the batch statistics of the valid rows
     (n = sum(mask) + 1e-6, biased variance) and updates the running
     statistics as 0.99 * old + 0.01 * batch; eval mode applies them.
@@ -234,6 +347,9 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if x.dim() > 2:
+            return self(x.reshape(-1, x.shape[-1]),
+                        mask.reshape(-1)).reshape(x.shape)
         if self.training:
             m = mask[:, None].to(x.dtype)
             n = torch.sum(m) + 1e-6
@@ -268,19 +384,8 @@ class SparseMiddleCov(nn.Module):
 
     def __init__(self, cfg: MiddleCfg):
         super().__init__()
-        if cfg.engine == "tiles":
-            raise NotImplementedError(
-                "engine='tiles' is not ported, by decision; use 'rulebook' "
-                "or 'band'")
-        if cfg.engine not in ("rulebook", "band"):
+        if cfg.engine not in ("rulebook", "band", "tiles"):
             raise ValueError(f"unknown middle engine {cfg.engine!r}")
-        if cfg.plan_lookup not in (None, "slot_map"):
-            raise NotImplementedError(
-                f"plan_lookup={cfg.plan_lookup!r} is not ported, by "
-                f"decision; only 'slot_map'")
-        if cfg.plane_apply:
-            raise NotImplementedError(
-                "plane_apply is not ported, by decision")
         if cfg.bn_type not in ("none", "bn", "sync_bn"):
             raise ValueError(f"unknown middle bn_type {cfg.bn_type!r}")
         self.cfg = cfg
@@ -294,7 +399,7 @@ class SparseMiddleCov(nn.Module):
                    (c0, c0, 27), (c0, cfg.cov_channels, 27)]
         self._convs = []
         for i, (ci, co, taps) in enumerate(encoder + decoder):
-            m = SpConv(ci, co, taps, cfg.conv_dtype)
+            m = SpConv(ci, co, taps, cfg.conv_dtype, cfg.plane_apply)
             self.add_module(f"SpConv_{i}", m)
             self._convs.append(m)
         # the encoder is normalized only under bn_type != "none"; the
@@ -311,13 +416,16 @@ class SparseMiddleCov(nn.Module):
             self.add_module(f"MaskedBatchNorm_{i}", m)
             self._norms.append(m)
 
-    def forward(self, voxel_features: torch.Tensor, geo: FrameGeometry,
+    def forward(self, voxel_features: torch.Tensor, geo,
                 with_cov: bool = True):
         """voxel_features: (V0, F) per-voxel features aligned with the
-        frame's voxel stream.  Returns (bev (ny, nx, nz*C),
-        cov (V0, 7)); ``with_cov=False`` skips the covariance decoder
-        (6 of the 20 convs, and its BNs) and returns None for cov."""
-        plan = _RulebookPlan(geo)
+        frame's voxel stream; geo: a FrameGeometry (rulebook and band
+        engines) or a TiledGeometry (tiled engine).  Returns
+        (bev (ny, nx, nz*C), cov (V0, 7)); ``with_cov=False`` skips the
+        covariance decoder (6 of the 20 convs, and its BNs) and returns
+        None for cov."""
+        plan = (_TiledPlan(geo) if isinstance(geo, tc.TiledGeometry)
+                else _RulebookPlan(geo))
         convs = iter(self._convs)
         norms = iter(self._norms)
         enc_norm = self._n_enc_norms > 0
@@ -336,7 +444,7 @@ class SparseMiddleCov(nn.Module):
             return x
 
         # encoder: L0 subm x2 -> down -> L1 subm x2 -> down
-        x = block(voxel_features, 0, 2)
+        x = block(plan.inject(voxel_features), 0, 2)
         x = norm_relu(conv(x, plan.down(0), 1), 1)
         x = block(x, 1, 2)
         x = norm_relu(conv(x, plan.down(1), 2), 2)
@@ -356,7 +464,7 @@ class SparseMiddleCov(nn.Module):
         y = norm_relu(conv(y, plan.inv(1), 0), 0, always=True)
         y = norm_relu(conv(y, plan.subm(0), 0), 0, always=True)
         y = norm_relu(conv(y, plan.subm(0), 0), 0, always=True)
-        cov = conv(y, plan.subm(0), 0)
+        cov = plan.extract_rows(conv(y, plan.subm(0), 0))
         cov = torch.cat([F.elu(cov[:, :3]) + 1 + 1e-6, cov[:, 3:]], dim=-1)
         cov = torch.where(plan.row_mask()[:, None], cov, 0.0)
         return bev, cov
@@ -393,6 +501,12 @@ class _RulebookPlan:
         return self._op(self.geo.inv_rb[i], self.rbs.inv_rb[i],
                         self.rbs.down_rb[1 - i])
 
+    def inject(self, rows):
+        return rows
+
+    def extract_rows(self, cov):
+        return cov
+
     def mask(self, i):
         return self.geo.levels[i].mask
 
@@ -404,3 +518,56 @@ class _RulebookPlan:
         nz, ny, nx, C = dense.shape
         # z-major channel order: channel = z*C + c
         return dense.permute(1, 2, 0, 3).reshape(ny, nx, nz * C)
+
+
+class _TiledPlan:
+    """Op/mask provider for the tiled engine: levels 0-1 are tile
+    blocks, levels 2-4 dense grids; masks follow the data layout."""
+
+    def __init__(self, geo: tc.TiledGeometry):
+        self.geo = geo
+        l1 = geo.l1
+        self._pad2 = tuple(l1.tgrid[d] * l1.half[d] for d in range(3))
+
+    def inject(self, rows):
+        return tc.scatter_voxels(rows, self.geo.cell_index, self.geo.l0)
+
+    def subm(self, i):
+        if i <= 1:
+            return SubmOp((self.geo.l0, self.geo.l1)[i])
+        return DenseSubmOp((self.geo.occ2, self.geo.occ3)[i - 2])
+
+    def down(self, i):
+        g = self.geo
+        if i == 0:
+            return DownOp(g.l0, g.l1)
+        if i == 1:
+            return DownDenseOp(g.l1, self._pad2, g.occ2)
+        if i == 2:
+            return DenseDownOp(g.occ3, (3, 3, 3), (2, 2, 2), (0, 1, 1))
+        return DenseDownOp(g.occ4, (3, 1, 1), (2, 1, 1), (0, 0, 0))
+
+    def inv(self, i):
+        if i == 0:
+            return InvDenseOp(self.geo.l1)       # dense L2 -> tiled L1
+        return InvTileOp(self.geo.l1, self.geo.l0)
+
+    def mask(self, i):
+        g = self.geo
+        if i <= 1:
+            return (g.l0, g.l1)[i].occ
+        return (g.occ2, g.occ3, g.occ4)[i - 2]
+
+    def row_mask(self):
+        flat = self.geo.l0.occ.reshape(-1)
+        flat = torch.cat([flat, flat.new_zeros(1)])
+        return flat[self.geo.cell_index.long()]
+
+    def extract_rows(self, cov):
+        return tc.gather_voxels(cov, self.geo.cell_index)
+
+    def to_bev(self, x):
+        # x dense (z4p, H, W, C); the true z4 from occ4's shape
+        z4, H, W = self.geo.occ4.shape
+        d = x[:z4, :H, :W]
+        return d.permute(1, 2, 0, 3).reshape(H, W, z4 * d.shape[-1])

@@ -27,7 +27,8 @@ from ..config.schema import PipelineCfg, grid_size
 from ..parallel.spatial import bev_constraint
 from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
-                     build_band_geometry, build_geometry)
+                     build_band_geometry, build_geometry,
+                     build_tiled_geometry)
 from .middle_pillar import PillarMiddleCov
 from .semiglobal_bn import SemiGlobalSyncBN
 from .vfe import VFES
@@ -121,9 +122,14 @@ class OdomNet(nn.Module):
     def _middle_geometry(self, coords, vmask, with_cov: bool = True):
         """Per-frame sparse geometry of the configured engine, with the
         transposed rulebooks when training needs gradients and the
-        inverse ones when the covariance decoder runs."""
+        inverse ones when the covariance decoder runs (the tiled
+        engine's geometry serves every case)."""
         m = self.cfg.middle
         grad = self.training and torch.is_grad_enabled()
+        if m.engine == "tiles":
+            return build_tiled_geometry(coords, vmask, self.sparse_shape,
+                                        tuple(m.tile_capacities),
+                                        tuple(m.tile_shape))
         if m.engine == "band":
             return build_band_geometry(
                 coords, vmask, self.sparse_shape, m.level_capacities,

@@ -15,6 +15,14 @@ gradient flows through the statistics.  Inside a data-parallel step the
 batch moments E[x] and E[x^2] are averaged over the ranks of the "data"
 axis first (``utils/mesh_axis.py``), as JAX's ``pmean``.
 
+Under a split of the BEV stage (``parallel/``) the statistics are those
+of the whole map, as GSPMD computes them: over a space split the sums
+of x and x^2 over every rank's columns divided by the global count
+(``parallel/spatial.py::batch_moments``); over a model split each rank
+holds a slice of the channels, normalizes it with its slice of the
+buffers and gathers the moments of every channel, so that every rank
+updates all eight buffers whole, as ``Norm`` does.
+
 Eight buffers, the flax ``batch_stats`` leaves: ``mean``, ``var``,
 ``mean_dyn_mom``, ``var_dyn_mom``, ``mean_g2``, ``var_g2``,
 ``mean_probe``, ``var_probe``.
@@ -24,6 +32,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.spatial import batch_moments
+from ..parallel.tensor import channel_range, gather_channels
 from ..utils.mesh_axis import pmean_if_present
 
 STATS = ("mean", "var", "mean_dyn_mom", "var_dyn_mom", "mean_g2", "var_g2",
@@ -65,12 +75,19 @@ class SemiGlobalSyncBN(nn.Module):
         g2.copy_(torch.clamp((1 - b) * g2 + b * diff, 0.0, mom ** 2))
         dyn_mom.copy_(1 - (1 - mom) / (1 - mom + torch.sqrt(g2) + 1e-9))
 
+    def _channels(self, x: torch.Tensor) -> tuple[int, int]:
+        """[lo, hi) of the channels ``x`` holds: all of them, or this
+        model rank's slice."""
+        c = self.scale.shape[0]
+        return (0, c) if x.shape[1] == c else channel_range(c)
+
     @torch.no_grad()
     def update_statistics(self, x: torch.Tensor):
-        xf = x.float()
-        dims = (0,) + tuple(range(2, x.dim()))
-        mu = pmean_if_present(torch.mean(xf, dim=dims), "data")
-        m2 = pmean_if_present(torch.mean(xf * xf, dim=dims), "data")
+        mu, m2 = batch_moments(x.float())
+        mu = pmean_if_present(mu, "data")
+        m2 = pmean_if_present(m2, "data")
+        if self._channels(x) != (0, self.scale.shape[0]):
+            mu, m2 = gather_channels(mu, 0), gather_channels(m2, 0)
         var = torch.clamp(m2 - mu * mu, min=0.0)
         self.mean.copy_(self.mean_dyn_mom * mu +
                         (1 - self.mean_dyn_mom) * self.mean)
@@ -82,9 +99,10 @@ class SemiGlobalSyncBN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             self.update_statistics(x)
+        lo, hi = self._channels(x)
         shape = (1, -1) + (1,) * (x.dim() - 2)
-        mean = self.mean.view(shape)
-        inv = torch.rsqrt(self.var.view(shape) + self.eps)
+        mean = self.mean[lo:hi].view(shape)
+        inv = torch.rsqrt(self.var[lo:hi].view(shape) + self.eps)
         y = (x.float() - mean) * inv
-        y = y * self.scale.view(shape) + self.bias.view(shape)
+        y = y * self.scale[lo:hi].view(shape) + self.bias[lo:hi].view(shape)
         return y.to(x.dtype)

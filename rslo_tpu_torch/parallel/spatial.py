@@ -20,8 +20,12 @@ partitioner, so the BEV net's layers ask this module for them:
   mask-sum conv gives, on a rank's columns, the columns of the unsharded
   result.
 - ``gather_width`` gathers a map along W (the confidence softmax over
-  H * W, the output maps); the batch-norm moments and spatial means sum
-  over the axis (``utils/mesh_axis.py::psum_if_present``).
+  H * W, the output maps); the batch-norm moments (``batch_moments``,
+  the plain and the semi-global BN) and spatial means sum over the axis
+  (``utils/mesh_axis.py::psum_if_present``).
+- A halo may be wider than a neighbour's share (the spatial gate's
+  7 x 7 conv at the encoder's last stage of a 4-rank split): it takes
+  columns of the ranks beyond, as GSPMD's exchange does.
 
 Transport: the halos and gathers are ``all_gather_if_present``, bits
 through an integer all-reduce, since gloo takes CUDA tensors only for
@@ -45,7 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.mesh_axis import (all_gather_if_present, axis_index, axis_size,
-                               bind_axis)
+                               bind_axis, psum_if_present)
 
 
 @dataclasses.dataclass
@@ -163,24 +167,42 @@ def same_pad(size: int, k: int, s: int) -> tuple[int, int]:
 def halo_pad(x: torch.Tensor, widths: tuple, left: int, right: int,
              value: float) -> torch.Tensor:
     """``x`` (..., W) with ``left`` columns before and ``right`` after:
-    the neighbouring space ranks' edge columns, ``value`` at the global
-    edges.  ``widths`` are every space rank's columns at this level, so
-    that a halo wider than some rank's share raises on every rank,
-    before the collective."""
+    the columns of the ranks to the left (r-1, r-2, ...) and to the
+    right (r+1, r+2, ...) until there are enough, ``value`` only past
+    the global edges.  ``widths`` are every space rank's columns at this
+    level, so a halo wider than a neighbour's share reaches past it.
+    One collective: every rank contributes its first and its last
+    ``min(h, share)`` columns, padded to h = max(left, right)."""
     if left == 0 and right == 0:
         return x
     h = max(left, right)
-    if min(widths) < h:
-        raise ValueError(f"a halo of {h} columns needs at least {h} on "
-                         f"every rank, the split gives {widths}: use "
-                         f"fewer ranks on the space axis")
-    edges = all_gather_if_present(
-        torch.cat([x[..., :h], x[..., -h:]], dim=-1), "space")
     r, n = axis_index("space"), axis_size("space")
-    fill = x.new_full(x.shape[:-1] + (h,), value)
-    lo = edges[r - 1][..., 2 * h - left:] if r > 0 else fill[..., :left]
-    hi = edges[r + 1][..., :right] if r < n - 1 else fill[..., :right]
-    return torch.cat([lo, x, hi], dim=-1)
+    k = min(h, x.shape[-1])
+    pad = x.new_full(x.shape[:-1] + (h - k,), value)
+    edges = all_gather_if_present(torch.cat(
+        [x[..., :k], pad, pad, x[..., x.shape[-1] - k:]], dim=-1), "space")
+
+    def fill(m):
+        return x.new_full(x.shape[:-1] + (m,), value)
+    lo, need = [], left
+    for j in range(r - 1, -1, -1):       # rank j's last columns
+        if need == 0:
+            break
+        take = min(need, widths[j])
+        lo.insert(0, edges[j][..., 2 * h - take:])
+        need -= take
+    if need:
+        lo.insert(0, fill(need))
+    hi, need = [], right
+    for j in range(r + 1, n):            # rank j's first columns
+        if need == 0:
+            break
+        take = min(need, widths[j])
+        hi.append(edges[j][..., :take])
+        need -= take
+    if need:
+        hi.append(fill(need))
+    return torch.cat(lo + [x] + hi, dim=-1)
 
 
 def pad_same(x: torch.Tensor, k: int, s: int,
@@ -203,12 +225,18 @@ def pad_same(x: torch.Tensor, k: int, s: int,
     return halo_pad(x, widths, *same_pad(sum(widths), k, s), value)
 
 
-def check_options(cfg) -> None:
-    """Raise ``ValueError`` for a BEV-net option the split forwards do
-    not shard."""
-    if cfg.bn_type == "semiglobal_sync_bn":
-        raise ValueError("bn_type='semiglobal_sync_bn' has no spatial or "
-                         "tensor split (its statistics are not sharded)")
+def batch_moments(xf: torch.Tensor):
+    """E[x] and E[x^2] per channel (dim 1) over every other dim; under a
+    space split the sums over the ranks divided by the global count
+    (the shares are uneven, so a mean of the ranks' means would be
+    wrong)."""
+    dims = (0,) + tuple(range(2, xf.dim()))
+    if not space_split():
+        return torch.mean(xf, dim=dims), torch.mean(xf * xf, dim=dims)
+    n = xf.numel() // xf.shape[1] // xf.shape[-1] * global_width(
+        xf.shape[-1])
+    return (psum_if_present(torch.sum(xf, dim=dims), "space") / n,
+            psum_if_present(torch.sum(xf * xf, dim=dims), "space") / n)
 
 
 def split_forward(net, mesh, axes: dict, train: bool):
@@ -217,9 +245,7 @@ def split_forward(net, mesh, axes: dict, train: bool):
     mesh axis it names, the BEV stage split along those axes.  The maps
     come out gathered and the odometry replicated: what the unsharded
     forward returns, on every rank."""
-    cfg = net.cfg.odom
-    check_options(cfg)
-    block = math.prod(cfg.layer_strides)
+    block = math.prod(net.cfg.odom.layer_strides)
 
     def fwd(example):
         was = net.training

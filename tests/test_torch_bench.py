@@ -11,9 +11,14 @@ import os
 
 import pytest
 
-from torch_port_helpers import port_cfg, to_port
+import torch
+
+from torch_port_helpers import port_cfg, tiny_scans, to_port
 
 from rslo_tpu_torch import bench, cli
+from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
+from rslo_tpu_torch.models.middle import build_geometry
+from rslo_tpu_torch.models.net import OdomNet
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -38,9 +43,28 @@ def test_bench_streaming_runs_on_the_cpu():
     assert math.isfinite(fps) and fps > 0
 
 
-def test_rejected_plan_lookup_raises(monkeypatch):
+def test_plan_lookup_env_runs_and_unknown_raises(monkeypatch):
+    """RSLO_PLAN_LOOKUP=ranked reaches the middle (its geometry equals
+    the slot-map one) and the bench runs; an unknown name raises."""
+    monkeypatch.setenv("RSLO_PLAN_LOOKUP", "ranked")
+    cfg = bench._bench_cfg(tiny(), "SparseMiddleCov", "rulebook")
+    assert cfg.middle.plan_lookup == "ranked"
+    pts = torch.tensor(tiny_scans(3, 1)[0])
+    ex = prepare_example(pts[None], torch.ones(1, len(pts), dtype=bool),
+                         voxelizer_config(cfg), mean_mode=True)
+    net = OdomNet(cfg)
+    got = net._middle_geometry(ex["coords"][0], ex["voxel_mask"][0])
+    want = build_geometry(ex["coords"][0], ex["voxel_mask"][0],
+                          net.sparse_shape, cfg.middle.level_capacities)
+    for kind in ("sub_rb", "down_rb", "inv_rb"):
+        for a, b in zip(getattr(got, kind), getattr(want, kind)):
+            assert torch.equal(a.valid, b.valid), kind
+            assert torch.equal(a.idx[a.valid], b.idx[b.valid]), kind
+    fps = bench.bench_middle("SparseMiddleCov", "rulebook", n_iter=1,
+                             cfg=tiny(), device="cpu")
+    assert math.isfinite(fps) and fps > 0
     monkeypatch.setenv("RSLO_PLAN_LOOKUP", "hash")
-    with pytest.raises(NotImplementedError, match="plan_lookup"):
+    with pytest.raises(ValueError, match="plan_lookup"):
         bench.bench_middle("SparseMiddleCov", "rulebook", n_iter=1,
                            cfg=tiny(), device="cpu")
 

@@ -40,8 +40,8 @@ def test_port_modules_import_without_jax():
     # and the data-parallel modules (utils/mesh_axis.py,
     # train/distributed.py, pgo/sharded.py), and the BEV stage's spatial
     # and tensor parallelism (parallel/), the bench, mean shift and the
-    # timing harness
-    assert int(n) >= 74, out.stdout
+    # timing harness, and the tiled engine (ops/tiled_conv.py)
+    assert int(n) >= 75, out.stdout
     assert leaked.strip() == "[]", out.stdout
 
 

@@ -12,7 +12,13 @@ the split forwards hold JAX's single-device forward to
 tests/test_spatial.py's tolerance and the port's one-process forward to
 SPLIT_TOL; on the CPU they come out bit-equal to it in bfloat16 and
 within 3.6e-7 in float32 (the width changes the convs' blocking), and
-within 9.4e-5 of JAX (the pillar middle's bf16 convs)."""
+within 9.4e-5 of JAX (the pillar middle's bf16 convs).
+
+The semi-global BN runs in train mode under SP2, SP4, TP2 and SP x TP
+(its statistics move in train mode only), against JAX's single-device
+forward and statistics; the spatial gate's 7 x 7 conv over SP4 at the
+encoder's last stage (2/2/1/1 columns) needs a halo of 3, wider than a
+neighbour's share."""
 import dataclasses
 
 import jax
@@ -30,11 +36,8 @@ from rslo_tpu.models.net import OdomNet as JaxOdomNet
 from rslo_tpu_torch.convert import load_flax_variables
 from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
 from rslo_tpu_torch.models.net import OdomNet
-from rslo_tpu_torch.parallel.spatial import (bev_constraint, halo_pad,
-                                             make_spatial_forward,
-                                             split_widths)
-from rslo_tpu_torch.parallel.tensor import (make_model_forward,
-                                            make_spatial_model_forward)
+from rslo_tpu_torch.parallel.spatial import bev_constraint, split_widths
+from rslo_tpu_torch.parallel.tensor import channel_range
 from rslo_tpu_torch.utils.mesh_axis import bind_axis
 
 JAX_TOL = dict(rtol=2e-3, atol=2e-4)        # tests/test_spatial.py's
@@ -128,6 +131,30 @@ def runs(tmp_path_factory):
             ref["train_buffers"] = {k: v.numpy().copy() for k, v in
                                     net.bev_net.named_buffers()}
     ex = examples["SparseMiddleCov"]
+    jex = jax_prepare(jnp.asarray(pts), jnp.asarray(mask),
+                      jax_vcfg(wide_cfg()), mean_mode=True)
+    # the semi-global BN in train mode, and the spatial gate (eval):
+    # JAX's single-device forward (and statistics) and the port's one
+    # process, on JAX's perturbed weights
+    for name, odom, train in (("sgbn", dict(bn_type="semiglobal_sync_bn"),
+                               True),
+                              ("sa", dict(use_sa=True), False)):
+        cfg = wide_cfg(**odom)
+        jnet = JaxOdomNet(cfg)
+        variables = jax_variables(jnet, 4, jex, train=False)
+        preds, stats = jax.jit(lambda v, e: jnet.apply(
+            v, e, train=train, mutable=["batch_stats"]))(
+                to_jax(variables), jex)
+        jref[name] = preds
+        net = load_flax_variables(OdomNet(to_port(cfg)), variables)
+        nets[name] = (to_port(cfg).to_json(), _state(net))
+        ref[name] = _forward(net, ex, train=train)
+        if train:
+            moved = load_flax_variables(OdomNet(to_port(cfg)), dict(
+                params=variables["params"],
+                batch_stats=jax.tree.map(np.asarray, stats["batch_stats"])))
+            jref[name + "_buffers"] = {k: v.numpy().copy() for k, v in
+                                       moved.bev_net.named_buffers()}
     bf = to_port(wide_cfg("bf16"))
     net = OdomNet(bf, torch.Generator().manual_seed(1))
     nets["bf16"] = (bf.to_json(), _perturbed(net, 1))
@@ -150,7 +177,12 @@ def runs(tmp_path_factory):
              ("sptp", S, S, (2, 2), ["space", "model"], False),
              ("sptp_bf16", "bf16", S, (2, 2), ["space", "model"], False),
              ("sp4_train", S, S, (4, 1), ["space"], True),
-             ("sptp_train", S, S, (2, 2), ["space", "model"], True)] + [
+             ("sptp_train", S, S, (2, 2), ["space", "model"], True),
+             ("sp2_sgbn", "sgbn", S, (2, 2), ["space"], True),
+             ("sp4_sgbn", "sgbn", S, (4, 1), ["space"], True),
+             ("tp2_sgbn", "sgbn", S, (2, 2), ["model"], True),
+             ("sptp_sgbn", "sgbn", S, (2, 2), ["space", "model"], True),
+             ("sp4_sa", "sa", S, (4, 1), ["space"], False)] + [
         (f"sptp_{name}", name, S, (2, 2), ["space", "model"], False)
         for name in OPTIONS]
     rng = np.random.default_rng(5)
@@ -253,14 +285,45 @@ def test_halo_pads_at_inner_edges(runs, k, s):
         np.concatenate([g["pool"] for g in got], -1), pool)
 
 
-def test_halo_wider_than_a_share_raises_on_every_rank(runs):
-    """A halo of 3 columns on the 4/4/2/2 split of a level: the ranks
-    holding 4 columns raise with those holding 2, so none is left in
-    the halo's collective."""
+@pytest.mark.parametrize("case", ["sp2_sgbn", "sp4_sgbn", "tp2_sgbn",
+                                  "sptp_sgbn"])
+def test_semiglobal_bn_split_matches_single_device(runs, case):
+    """Train mode: the statistics of the whole map (over SP the sums
+    over every rank's columns divided by the global count, the shares
+    being uneven over 4; over TP the moments of every channel
+    gathered), all eight buffers updated whole on every rank; the
+    forward normalizes with them."""
+    jref = {k: np_(runs["jref"]["sgbn"][k])
+            for k in ("odometry", "tq_map", "t_conf")}
+    _check(runs["ranks"], case, jref, keys=jref, **JAX_TOL)
+    _check(runs["ranks"], case, runs["ref"]["sgbn"],
+           keys=("odometry", "tq_map", "t_conf"), **TRAIN_TOL)
+    want = runs["jref"]["sgbn_buffers"]
+    assert sum("SemiGlobalSyncBN_0" in k for k in want) >= 8
     for r, res in enumerate(runs["ranks"]):
-        msg = res["halo_refusal"]
-        assert msg is not None, f"rank {r} did not raise"
-        assert "halo of 3 columns" in msg and "(4, 4, 2, 2)" in msg, msg
+        assert set(res[case]["buffers"]) == set(want)
+        for k, v in want.items():
+            np.testing.assert_allclose(res[case]["buffers"][k], v,
+                                       **JAX_TOL,
+                                       err_msg=f"{case} rank {r}: {k}")
+
+
+def test_halo_wider_than_a_share_matches_single_device(runs):
+    """The spatial gate's 7 x 7 conv at the last encoder stage of SP4 on
+    48 columns (2/2/1/1: a halo of 3 reaches two ranks away) against
+    JAX's single-device forward and the port's one process; and
+    halo_pad itself on a 4/4/2/2 split: each rank's padded columns are
+    the slice of the globally padded map."""
+    _check(runs["ranks"], "sp4_sa", runs["ref"]["sa"], **SPLIT_TOL)
+    jref = {k: np_(runs["jref"]["sa"][k])
+            for k in ("odometry", "tq_map", "t_conf")}
+    _check(runs["ranks"], "sp4_sa", jref, keys=jref, **JAX_TOL)
+    full = np.concatenate([[-1.0] * 3, np.arange(12.0), [-1.0] * 3])
+    starts = (0, 4, 8, 10)
+    for r, res in enumerate(runs["ranks"]):
+        n = (4, 4, 2, 2)[r]
+        np.testing.assert_array_equal(res["halo_wide"][0, 0],
+                                      full[starts[r]:starts[r] + n + 6])
 
 
 def test_gather_gradient_is_the_all_reduced_share(runs):
@@ -288,19 +351,15 @@ def test_split_widths_chunks_and_refusals():
 
 
 def test_refused_options_and_no_context():
-    """The semi-global BN has no split (ValueError naming it); a halo
-    wider than some rank's columns (the spatial gate's 7 x 7 conv at the
-    encoder's last stage over too many ranks) raises before any
-    collective, on a rank that holds enough columns itself; outside a split the hook returns the pair tensor
+    """The two splits GSPMD pads and the port refuses: a channel count
+    the model ranks do not divide (ValueError before any collective;
+    fewer width chunks than space ranks: test_split_widths_chunks_and_
+    refusals); outside a split the hook returns the pair tensor
     itself."""
-    cfg = to_port(wide_cfg(bn_type="semiglobal_sync_bn"))
-    net = OdomNet(cfg)
-    for make in (make_spatial_forward, make_model_forward,
-                 make_spatial_model_forward):
-        with pytest.raises(ValueError, match="semiglobal_sync_bn"):
-            make(net, None)
-    with bind_axis("space", None, 4, rank=1), \
-            pytest.raises(ValueError, match="halo of 3 columns"):
-        halo_pad(torch.zeros(1, 2, 3, 3), (3, 3, 2, 2), 3, 3, 0.0)
+    with bind_axis("model", None, 3, rank=1), \
+            pytest.raises(ValueError, match="do not split"):
+        channel_range(16)
+    with bind_axis("model", None, 2, rank=1):
+        assert channel_range(16) == (8, 16)
     x = torch.zeros(1, 16, 48, 64)
     assert bev_constraint(x) is x

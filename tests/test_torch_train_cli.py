@@ -10,6 +10,7 @@ its preserved copy, ``evaluate --ckpt_step best`` after the best step
 was pruned, and a rulebook run warm-started from the pillar run's
 ``bev_net`` (as tests/test_warmstart.py does across middles in JAX)."""
 import dataclasses
+import itertools
 import json
 import shutil
 
@@ -59,18 +60,28 @@ def runs(tmp_path_factory):
     seen = {"legs": [], "whole": []}
     fetched = {"legs": [], "whole": []}
     key = {}
+    made = itertools.count()
     step, fetch = loop.train_step, PL.DataLoader._fetch_one
+    init = PL.DataLoader.__init__
 
     def recording(state, batch, *a, **k):
         seen[key["run"]].append(batch["points"].cpu().numpy().copy())
         return step(state, batch, *a, **k)
 
+    def numbered_init(self, *a, **k):
+        # numbered before the loader's thread starts fetching
+        self._made_no = next(made)
+        init(self, *a, **k)
+
     def recording_fetch(self, idx, seq_no=0):
-        fetched[key["run"]].append(idx)
+        # fetches run on the loader's thread pool, so they land here in
+        # thread order: keep the loader and its stream position
+        fetched[key["run"]].append((self._made_no, seq_no, idx))
         return fetch(self, idx, seq_no)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(loop, "train_step", recording)
+        mp.setattr(PL.DataLoader, "__init__", numbered_init)
         mp.setattr(PL.DataLoader, "_fetch_one", recording_fetch)
         key["run"] = "legs"
         first = _train(root / "cfg.json", root / "legs", "--steps",
@@ -80,6 +91,10 @@ def runs(tmp_path_factory):
         key["run"] = "whole"
         whole = _train(root / "cfg_keep1.json", root / "whole", "--steps",
                        str(STEPS))
+    # each loader's windows in its stream order, the loaders in the
+    # order they were made
+    fetched = {run: [idx for _, _, idx in sorted(rec)]
+               for run, rec in fetched.items()}
     return dict(root=root, seen=seen, fetched=fetched,
                 steps=(first.step, last.step, whole.step))
 

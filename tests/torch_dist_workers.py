@@ -260,14 +260,16 @@ def bev_splits(mesh, nets, examples, cases, halo, grad):
     in train mode the BEV net's buffers after it); plus ``halo``'s
     cases: (name, NCHW input, conv weight, kernel, stride) as a stride-k
     conv through ``bev_net._conv`` on this rank's columns of a 4-rank
-    width split; ``halo_refusal``: the ValueError's message of a halo
-    wider than some ranks' share; and ``grad``: L = sum(gather(x_r) * grad[r]) over the
-    4-rank space axis with x_r = r, its gather and dL/dx_r."""
+    width split; ``halo_wide``: ``halo_pad`` of 3 columns each side on
+    this rank's columns of a 4/4/2/2 split of a 12-column map (wider
+    than the 2-column shares); and ``grad``: L = sum(gather(x_r) *
+    grad[r]) over the 4-rank space axis with x_r = r, its gather and
+    dL/dx_r."""
     from rslo_tpu_torch.config.schema import PipelineCfg
     from rslo_tpu_torch.models import bev_net
     from rslo_tpu_torch.models.net import OdomNet
     from rslo_tpu_torch.parallel.spatial import (_active, _Split,
-                                                 bev_constraint,
+                                                 bev_constraint, halo_pad,
                                                  make_spatial_forward)
     from rslo_tpu_torch.parallel.tensor import (make_model_forward,
                                                 make_spatial_model_forward)
@@ -307,17 +309,12 @@ def bev_splits(mesh, nets, examples, cases, halo, grad):
                              pool=_np(bev_net.max_pool_mask(
                                  local[:, :1], k, s)),
                              widths=split.widths)
-    # a 7 x 7 gate (halo 3) at the stride-4 level of the 16/16/8/8 split,
-    # 4/4/2/2 columns: every rank raises, those holding 4 too, before
-    # any collective (a rank left in it would hang)
-    with bind_axis("space", g.space_group, g.space, g.space_index), \
-            _active(_Split(True, False, 8)):
-        local = bev_constraint(torch.zeros(1, 2, 48, 1))
-        try:
-            bev_net._pad_same(torch.zeros(1, 1, 2, local.shape[2] // 4), 7, 1)
-            out["halo_refusal"] = None
-        except ValueError as e:
-            out["halo_refusal"] = str(e)
+    widths = (4, 4, 2, 2)
+    r = g.space_index
+    cols = torch.arange(12.0).reshape(1, 1, 12)[..., sum(widths[:r]):
+                                                 sum(widths[:r + 1])]
+    with bind_axis("space", g.space_group, g.space, g.space_index):
+        out["halo_wide"] = _np(halo_pad(cols, widths, 3, 3, -1.0))
     x = torch.full((3,), float(g.space_index), requires_grad=True)
     with bind_axis("space", g.space_group, g.space, g.space_index):
         y = all_gather_if_present(x, "space")
