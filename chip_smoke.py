@@ -247,6 +247,15 @@ modules only tests reach.  Phases (each one exits non-zero when it fails):
      and the spatial gate over SP4 at 48 BEV columns (x +-19.2 m;
      2/2/1/1 columns at the last stage, a halo of 3: the shipped 176
      columns reach past a share only from 8 ranks on)
+ 26. the splits GSPMD pads (``padded_split_phases``), the same four
+     ranks, phase 4's weights and scans in bf16 and float32: SP over 4
+     at 24 BEV columns (x +-9.6 m: 8/8/8/0, rank 3 without columns),
+     TP over the 1 x 3 grid of ranks 0-2 at the shipped width (128
+     channels 43/43/42; rank 3 outside the grid) and SP x TP over 2 x 2
+     at 8 columns (x +-3.2 m: space 8/0); every map and the pyramid
+     against this process's unsplit forward within SPLIT_REL_TOL, each
+     grid rank's launches those of the unsplit forward, ms a forward a
+     rank beside the unsplit forward's
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -3362,6 +3371,8 @@ SPLIT_RANKS = 4
 SPLIT_LAYOUTS = (("sp2", (2, 2), ("space",)), ("tp2", (2, 2), ("model",)),
                  ("sptp", (2, 2), ("space", "model")),
                  ("sp4", (4, 1), ("space",)))
+# phase 26's too: TP over the 1 x 3 grid of ranks 0-2 (rank 3 outside)
+ALL_LAYOUTS = SPLIT_LAYOUTS + (("tp3", (1, 3), ("model",)),)
 SPLIT_TIMED = 3            # timed forwards a layout, after the checked one
 SPLIT_KEYS = ("odometry", "tq_map", "t_conf", "q_conf", "input_mask")
 # each map's max |split - one process| over its max |one process|: cuDNN
@@ -3417,13 +3428,14 @@ def rank_kernels(_build, rank):
 
 
 def split_rank(spec_path):
-    """One rank of phase 24a-d (or of phase 25d's jobs), in its own
-    process: joins the gloo group on the card, forms the 4 x 1 and 2 x 2
-    grids, and runs each layout of SPLIT_LAYOUTS (or of the job's) in
-    each precision: one forward with the launch counts set to 0 just
-    before and read just after (in train mode also the BEV net's
-    buffers after it), then SPLIT_TIMED (the job's ``timed``) forwards
-    on the host clock (see ``split_phases``)."""
+    """One rank of phase 24a-d (or of phase 25d's or 26's jobs), in its
+    own process: joins the gloo group on the card, forms the 4 x 1 and
+    2 x 2 grids and the 1 x 3 grid of ranks 0-2, and runs each layout of
+    SPLIT_LAYOUTS (or the job's of ALL_LAYOUTS, those whose grid holds
+    this rank) in each precision: one forward with the launch counts set
+    to 0 just before and read just after (in train mode also the BEV
+    net's buffers after it), then SPLIT_TIMED (the job's ``timed``)
+    forwards on the host clock (see ``split_phases``)."""
     import torch
     import torch.distributed as dist
     sys.path.insert(0, REPO)
@@ -3450,21 +3462,23 @@ def split_rank(spec_path):
     initialize_multihost(spec["rdv"], spec["world"], rank, device=dev,
                          backend=spec["backend"])
     out = {}
-    # phase 24's one job, or phase 25d's: (tag, state, example, configs
-    # by precision, layout names or None for all, train mode, timed
-    # forwards)
+    # phase 24's one job, or phase 25d's or 26's: (tag, state, example,
+    # configs by precision, layout names or None for SPLIT_LAYOUTS, train
+    # mode, timed forwards)
     jobs = spec.get("jobs") or [dict(
         tag=None, state=spec["state"], example=spec["example"],
         configs=spec["configs"], layouts=None, train=False,
         timed=SPLIT_TIMED)]
     try:
-        grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2)}
+        grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2),
+                 (1, 3): grid_mesh(1, 3, ranks=range(3))}
         for job in jobs:
             state = torch.load(job["state"], weights_only=False)
             ex = {k: v.to(dev) for k, v in
                   torch.load(job["example"], weights_only=False).items()}
-            layouts = [lay for lay in SPLIT_LAYOUTS if job["layouts"] is None
-                       or lay[0] in job["layouts"]]
+            layouts = (SPLIT_LAYOUTS if job["layouts"] is None else
+                       [lay for lay in ALL_LAYOUTS if lay[0] in job["layouts"]
+                        and grids[lay[1]] is not None])
             for prec, cfg_json in job["configs"].items():
                 net = OdomNet(PipelineCfg.from_json(cfg_json)).to(dev)
                 for name, grid, axes in layouts:
@@ -4191,51 +4205,76 @@ def engine_option_phases(frames, cli, Trainer, counted, reset_counts,
 
 def split_option_phases(ecfg, frames, reset_counts, counts, dev, smi_line,
                         np, torch, backend="gloo"):
-    """Phase 25d: ``split_rank`` jobs on SPLIT_RANKS gloo ranks sharing
-    the card, each against this process's unsplit forward on ``dev``
-    (SPLIT_REL_TOL's f32 bound, maps and the BEV net's buffers; each
-    rank's launches those of the unsplit forward): the semi-global BN
-    in train mode over SG_LAYOUTS, and the spatial gate over SP4 at 48
-    BEV columns.  Returns rank 0's launches a layout."""
+    """Phase 25d: the semi-global BN in train mode over SG_LAYOUTS, and
+    the spatial gate over SP4 at 48 BEV columns, f32, through
+    ``split_job_phases``.  Returns rank 0's launches a layout."""
+    f32 = dict(middle=dataclasses.replace(ecfg.middle, conv_dtype="f32"))
+    jobs = (("sgbn", {"f32": ecfg.replace(**f32, odom=dataclasses.replace(
+                ecfg.odom, compute_dtype="fp32",
+                bn_type="semiglobal_sync_bn"))}, SG_LAYOUTS, True),
+            ("wide_sa", {"f32": x_range(ecfg, WIDE_HALO_X).replace(
+                **f32, odom=dataclasses.replace(ecfg.odom, compute_dtype="fp32",
+                                                use_sa=True))}, ("sp4",),
+             False))
+    return split_job_phases(jobs, frames, "25d", SPLIT_JOB_TIMED,
+                            reset_counts, counts, dev, smi_line, np, torch,
+                            backend)
+
+
+def x_range(cfg, x):
+    """``cfg`` with the point cloud's x range cut to +-``x`` m (the BEV
+    width to 2 x / voxel / 8 columns)."""
+    pr = cfg.voxelizer.point_cloud_range
+    return cfg.replace(voxelizer=dataclasses.replace(
+        cfg.voxelizer, point_cloud_range=(-x,) + tuple(pr[1:3]) + (x,) +
+        tuple(pr[4:])))
+
+
+def split_job_phases(jobs, frames, phase, timed, reset_counts, counts, dev,
+                     smi_line, np, torch, backend="gloo"):
+    """``split_rank`` jobs on SPLIT_RANKS gloo ranks sharing the card:
+    each job (tag, configs by precision, layout names, train mode) with
+    phase 4's seeded weights on the first two of ``frames``, against
+    this process's unsplit forward on ``dev``: every map, the pyramid
+    and (train mode) the BEV net's buffers within SPLIT_REL_TOL of the
+    precision, on every rank of the layout's grid, whose launches must
+    be the unsplit forward's; ms a forward a rank beside the unsplit
+    forward's (median of ``timed``, host clock).  Returns rank 0's
+    launches a layout, in the first precision."""
     from rslo_tpu_torch.data.prepare import prepare_example, voxelizer_config
     from rslo_tpu_torch.models.net import OdomNet
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
     os.makedirs(SPLIT_DIR)
-    f32 = dict(middle=dataclasses.replace(ecfg.middle, conv_dtype="f32"))
-    pr = ecfg.voxelizer.point_cloud_range
-    narrow = (-WIDE_HALO_X,) + tuple(pr[1:3]) + (WIDE_HALO_X,) + \
-        tuple(pr[4:])
-    jobs = (("sgbn", ecfg.replace(**f32, odom=dataclasses.replace(
-                ecfg.odom, compute_dtype="fp32",
-                bn_type="semiglobal_sync_bn")), SG_LAYOUTS, True),
-            ("wide_sa", ecfg.replace(
-                **f32, voxelizer=dataclasses.replace(
-                    ecfg.voxelizer, point_cloud_range=narrow),
-                odom=dataclasses.replace(ecfg.odom, compute_dtype="fp32",
-                                         use_sa=True)), ("sp4",), False))
+    pts = torch.as_tensor(np.stack(frames[:2]), device=dev)
     specs, refs = [], {}
-    for tag, cfg, layouts, train in jobs:
+    for tag, configs, layouts, train in jobs:
         gen = torch.Generator().manual_seed(SEED)
-        net = OdomNet(cfg, gen)
+        net = OdomNet(next(iter(configs.values())), gen)
         randomize_bn(net, gen)
         state = {k: v.clone() for k, v in net.state_dict().items()}
-        pts = torch.as_tensor(np.stack(frames[:2]), device=dev)
         ex = prepare_example(pts, torch.ones(pts.shape[:2], dtype=bool,
                                              device=dev),
-                             voxelizer_config(cfg), mean_mode=True)
-        model = OdomNet(cfg).to(dev)
-        model.load_state_dict(state)
-        model.train(train)
-        reset_counts()
-        with torch.no_grad():
-            preds = model(ex)
-        torch.cuda.synchronize()
-        refs[tag] = dict(
-            launches=counts(),
-            maps={k: preds[k].float().cpu().numpy() for k in SPLIT_KEYS},
-            buffers={k: v.cpu().numpy().copy() for k, v in
-                     model.bev_net.named_buffers()} if train else None)
-        del model
+                             voxelizer_config(next(iter(configs.values()))),
+                             mean_mode=True)
+        for prec, cfg in configs.items():
+            model = OdomNet(cfg).to(dev)
+            model.load_state_dict(state)
+            model.train(train)
+            reset_counts()
+            with torch.no_grad():
+                preds = model(ex)
+            torch.cuda.synchronize()
+            refs[tag, prec] = dict(
+                launches=counts(),
+                maps={k: preds[k].float().cpu().numpy() for k in SPLIT_KEYS},
+                pyramid=[(a.float().cpu().numpy(), b.float().cpu().numpy())
+                         for a, b in preds["pyramid"]],
+                buffers={k: v.cpu().numpy().copy() for k, v in
+                         model.bev_net.named_buffers()} if train else None)
+            with torch.no_grad():
+                refs[tag, prec]["ms"] = median_ms(lambda: model(ex), timed,
+                                                  torch)
+            del model
         torch.save(state, os.path.join(SPLIT_DIR, f"{tag}_state.pt"))
         torch.save({k: v.cpu() for k, v in ex.items()},
                    os.path.join(SPLIT_DIR, f"{tag}_example.pt"))
@@ -4243,60 +4282,110 @@ def split_option_phases(ecfg, frames, reset_counts, counts, dev, smi_line,
                           state=os.path.join(SPLIT_DIR, f"{tag}_state.pt"),
                           example=os.path.join(SPLIT_DIR,
                                                f"{tag}_example.pt"),
-                          configs={"f32": cfg.to_json()}, layouts=layouts,
-                          train=train, timed=SPLIT_JOB_TIMED))
-    rdv = f"file://{os.path.join(SPLIT_DIR, 'rendezvous25')}"
+                          configs={p: c.to_json() for p, c in
+                                   configs.items()},
+                          layouts=layouts, train=train, timed=timed))
+    rdv = f"file://{os.path.join(SPLIT_DIR, 'rendezvous' + phase)}"
     t0 = time.perf_counter()
     ranks = run_dp_ranks([dict(
         rank=r, world=SPLIT_RANKS, rdv=rdv, backend=backend,
         device=str(dev), jobs=specs,
-        out=os.path.join(SPLIT_DIR, f"rank25_{r}.pt"))
+        out=os.path.join(SPLIT_DIR, f"rank{phase}_{r}.pt"))
         for r in range(SPLIT_RANKS)], torch, entry="split_rank",
-        phase="phase 25d")
-    say(f"[split 25d] {SPLIT_RANKS} {backend} ranks on the one card: "
+        phase=f"phase {phase}")
+    say(f"[split {phase}] {SPLIT_RANKS} {backend} ranks on the one card: "
         f"{time.perf_counter() - t0:.1f} s, process start and library "
         f"loads included")
-    tol = SPLIT_REL_TOL["f32"]
     launches = {}
-    for tag, cfg, layouts, train in jobs:
-        W = refs[tag]["maps"]["tq_map"].shape[2]
-        for name in layouts:
-            worst = {}
-            for r, res in enumerate(ranks):
-                got = res[tag, "f32", name]
-                if got["launches"] != refs[tag]["launches"]:
-                    fail(f"25d {tag} {name} rank {r}: launches "
-                         f"{got['launches']}, the unsplit forward's "
-                         f"{refs[tag]['launches']}")
-                pairs = [(k, got["maps"][k], refs[tag]["maps"][k])
-                         for k in SPLIT_KEYS]
-                if train:
-                    pairs += [(k, got["buffers"][k], v) for k, v in
-                              refs[tag]["buffers"].items()]
-                for k, g, w in pairs:
-                    if g.shape != w.shape:
-                        fail(f"25d {tag} {name} rank {r}: {k} shape "
-                             f"{g.shape}, unsplit {w.shape}")
-                    rel = float(np.abs(g - w).max()) / max(
-                        float(np.abs(w).max()), 1e-30)
-                    key = "buffers" if k not in SPLIT_KEYS else k
-                    worst[key] = max(worst.get(key, 0.0), rel)
-                    if not rel <= tol:
-                        fail(f"25d {tag} {name} rank {r}: {k} off the "
-                             f"unsplit forward by {rel:.3e} of its largest "
-                             f"value (> {tol:g})")
-            ms = ", ".join(
-                f"{statistics.median(res[tag, 'f32', name]['ms']):.3f}"
-                for res in ranks)
-            say(f"[split 25d] {tag} {name}, f32, "
-                f"{'train' if train else 'eval'} mode, BEV width {W}: per "
-                f"rank {ms} ms a forward (host clock, gloo, {SPLIT_RANKS} "
-                f"ranks sharing the card); max |diff| / max |unsplit|: "
-                + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
-                + f" (held to {tol:g}); {smi_line}")
-            launches[f"split25_{tag}_{name}_launches"] = \
-                ranks[0][tag, "f32", name]["launches"]
+    for tag, configs, layouts, train in jobs:
+        for prec in configs:
+            ref, tol = refs[tag, prec], SPLIT_REL_TOL[prec]
+            W = ref["maps"]["tq_map"].shape[2]
+            for name in layouts:
+                worst, ms = {}, []
+                members = [(r, res[tag, prec, name]) for r, res in
+                           enumerate(ranks) if (tag, prec, name) in res]
+                grid = next(lay[1] for lay in ALL_LAYOUTS if lay[0] == name)
+                if len(members) != grid[0] * grid[1]:
+                    fail(f"{phase} {tag} {prec} {name}: {len(members)} ranks "
+                         f"ran it, the {grid[0]} x {grid[1]} grid holds "
+                         f"{grid[0] * grid[1]}")
+                for r, got in members:
+                    if got["launches"] != ref["launches"]:
+                        fail(f"{phase} {tag} {prec} {name} rank {r}: "
+                             f"launches {got['launches']}, the unsplit "
+                             f"forward's {ref['launches']}")
+                    pairs = [(k, got["maps"][k], ref["maps"][k])
+                             for k in SPLIT_KEYS] + [
+                        (f"pyramid{i}{j}", g[j], w[j]) for i, (g, w) in
+                        enumerate(zip(got["pyramid"], ref["pyramid"]))
+                        for j in (0, 1)]
+                    if train:
+                        pairs += [(k, got["buffers"][k], v) for k, v in
+                                  ref["buffers"].items()]
+                    if len(got["pyramid"]) != len(ref["pyramid"]):
+                        fail(f"{phase} {tag} {prec} {name} rank {r}: "
+                             f"{len(got['pyramid'])} pyramid levels, "
+                             f"unsplit {len(ref['pyramid'])}")
+                    for k, g, w in pairs:
+                        if g.shape != w.shape:
+                            fail(f"{phase} {tag} {prec} {name} rank {r}: {k} "
+                                 f"shape {g.shape}, unsplit {w.shape}")
+                        rel = float(np.abs(g - w).max()) / max(
+                            float(np.abs(w).max()), 1e-30)
+                        key = ("pyramid" if k.startswith("pyramid") else
+                               k if k in SPLIT_KEYS else "buffers")
+                        worst[key] = max(worst.get(key, 0.0), rel)
+                        if not rel <= tol:
+                            fail(f"{phase} {tag} {prec} {name} rank {r}: {k} "
+                                 f"off the unsplit forward by {rel:.3e} of "
+                                 f"its largest value (> {tol:g})")
+                    ms.append(f"{statistics.median(got['ms']):.3f}")
+                say(f"[split {phase}] {tag} {name} (grid {grid[0]} x "
+                    f"{grid[1]}), {prec}, {'train' if train else 'eval'} "
+                    f"mode, BEV width {W}: per rank {', '.join(ms)} ms a "
+                    f"forward against the unsplit {ref['ms']:.3f} (median of "
+                    f"{timed}, host clock, {backend}, {SPLIT_RANKS} ranks "
+                    f"sharing the card); max |diff| / max |unsplit|: "
+                    + ", ".join(f"{k} {v:.2e}" for k, v in worst.items())
+                    + f" (held to {tol:g}); {smi_line}")
+                if prec == next(iter(configs)):
+                    launches[f"split{phase[:2]}_{tag}_{name}_launches"] = \
+                        members[0][1]["launches"]
     shutil.rmtree(SPLIT_DIR, ignore_errors=True)
+    return launches
+
+
+# -- phase 26: the splits GSPMD pads ----------------------------------------
+
+# (tag, x range +-m or None for the shipped one, layout): SP4 on 24
+# columns, 3 chunks of 8 (8/8/8/0: rank 3 holds none); TP3 at the
+# shipped width on the 1 x 3 grid of ranks 0-2 (128 channels 43/43/42,
+# the grouped first conv's group boundary at 64 inside rank 1's slice,
+# the heads' 64 and 32 as 22/21/21 and 11/11/10); SP x TP 2 x 2 on 8
+# columns (space 8/0: one row of the grid holds no column)
+PADDED_JOBS = (("sp4_x24", 9.6, "sp4"), ("tp3", None, "tp3"),
+               ("sptp_x8", 3.2, "sptp"))
+PADDED_TIMED = 2
+
+
+def padded_split_phases(cfg, frames, reset_counts, counts, dev, smi_line,
+                        np, torch, backend="gloo", jobs=PADDED_JOBS):
+    """Phase 26: the layouts GSPMD pads (``jobs``: PADDED_JOBS), each in
+    bf16 (``cfg``) and its float32 twin, eval mode, through
+    ``split_job_phases``.  Returns rank 0's bf16 launches a layout."""
+    t_phase = time.perf_counter()
+    padded = []
+    for tag, x, layout in jobs:
+        c = cfg if x is None else x_range(cfg, x)
+        padded.append((tag, {"bf16": c, "f32": c.replace(
+            middle=dataclasses.replace(c.middle, conv_dtype="f32"),
+            odom=dataclasses.replace(c.odom, compute_dtype="fp32"))},
+            (layout,), False))
+    launches = split_job_phases(padded, frames, "26", PADDED_TIMED,
+                                reset_counts, counts, dev, smi_line, np,
+                                torch, backend)
+    say(f"[phase 26] {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -5525,6 +5614,10 @@ def main():
             dev, smi_line, np, torch),
         dev, smi_line, np, torch))
 
+    # -- 26. the splits GSPMD pads -------------------------------------------
+    more.update(padded_split_phases(cfg, frames, reset_counts, counts, dev,
+                                    smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -5553,7 +5646,8 @@ def main():
                      # the bench verb; phase 25's tiled engine
                      # (streaming, the train verb, the evaluate verb),
                      # the plan lookups' and plane_apply's streaming and
-                     # its split forwards (rank 0's, f32)
+                     # its split forwards (rank 0's, f32); phase 26's
+                     # split forwards (rank 0's, bf16)
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -17,9 +17,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.spatial import pad_same, space_split
-from ..parallel.tensor import (bev_mean, gather_channels, local_channels,
-                               model_split)
+from ..parallel.spatial import same_op, space_split
+from ..parallel.tensor import (bev_mean, gather_channels, holds_slice,
+                               local_channels)
 
 
 def _mean(x: torch.Tensor, dim) -> torch.Tensor:
@@ -36,9 +36,10 @@ class SELayer(nn.Module):
         self.Dense_1 = nn.Linear(self.Dense_0.out_features, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        s = bev_mean(x).to(x.dtype).float()               # (N, C)
+        c = self.Dense_0.in_features
+        s = bev_mean(x, c).to(x.dtype).float()            # (N, C)
         s = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(s))))
-        if model_split():
+        if holds_slice(x, c):
             s = local_channels(s)
         return x * s[:, :, None, None]
 
@@ -46,7 +47,8 @@ class SELayer(nn.Module):
 class SpatialAttention(nn.Module):
     """Per-pixel gate: a ``kernel`` x ``kernel`` SAME conv (odd kernel,
     stride 1: symmetric padding) over the channel mean and max, sigmoid,
-    times the input."""
+    times the input (of ``channels`` channels, of which it holds a slice
+    under a model split)."""
 
     def __init__(self, kernel: int = 7):
         super().__init__()
@@ -55,14 +57,14 @@ class SpatialAttention(nn.Module):
                              f"{kernel}")
         self.Conv_0 = nn.Conv2d(2, 1, kernel, padding=kernel // 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        xs = gather_channels(x) if model_split() else x
+    def forward(self, x: torch.Tensor, channels: int) -> torch.Tensor:
+        xs = gather_channels(x, channels) if holds_slice(x, channels) else x
         g = torch.cat([_mean(xs, 1), torch.amax(xs, dim=1, keepdim=True)],
                       dim=1).float()
         if space_split():       # SAME padding with halos
             k = self.Conv_0.kernel_size[0]
-            a = F.conv2d(pad_same(g, k, 1), self.Conv_0.weight,
-                         self.Conv_0.bias)
+            a = same_op(lambda p: F.conv2d(p, self.Conv_0.weight,
+                                           self.Conv_0.bias), g, k, 1)
         else:
             a = self.Conv_0(g)
         return x * torch.sigmoid(a)

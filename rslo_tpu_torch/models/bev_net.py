@@ -12,12 +12,13 @@ residual adds average the masks.
 
 Convs follow flax's ``padding="SAME"``, which is asymmetric at stride
 2 on an even size: the pad goes (0, 1), not torch's (1, 1), so every
-conv and pool pads explicitly with :func:`_pad_same` and then runs
-unpadded.  dtypes follow flax's promotion: a conv built with the net's
-compute dtype (``MaskConv``, ``ConvBNRelu``) casts its input to it, so
-an f32 input (after an attention block, whose float32 parameters
-promote a bfloat16 input) goes back to bfloat16; heads without a dtype
-(the tq and confidence 1x1 convs, the FC head) compute in f32.
+conv and pool pads explicitly (``parallel/spatial.py::pad_same``) and
+then runs unpadded.  dtypes follow flax's promotion: a conv built with
+the net's compute dtype (``MaskConv``, ``ConvBNRelu``) casts its input
+to it, so an f32 input (after an attention block, whose float32
+parameters promote a bfloat16 input) goes back to bfloat16; heads
+without a dtype (the tq and confidence 1x1 convs, the FC head) compute
+in f32.
 
 Submodules carry the flax auto-names of the reference (``BasicBlock_<i>``,
 ``FireBlock_<i>``, ``ConvBNRelu_<i>``, ``Conv_<i>``, ``Dense_<i>``, ...)
@@ -29,8 +30,9 @@ halos over the "space" axis (``parallel/spatial.py::pad_same``), convs
 gather their input channels over "model" and compute their slice of the
 output channels, the batch moments and spatial means sum over "space",
 the confidence softmax and the output maps gather along W, and the vote
-runs on the gathered maps on every rank.  Outside one, each of these
-paths is the unsplit op itself.
+runs on the gathered maps on every rank.  A rank may hold no columns or
+no channels of a map; it still joins every exchange.  Outside a split,
+each of these paths is the unsplit op itself.
 """
 from __future__ import annotations
 
@@ -45,10 +47,9 @@ from ..geometry import (decode_tq_map, grid_cell_coords, hemisphere,
                         matrix_to_quat, qnormalize, rotate_vec_by_q,
                         weighted_kabsch)
 from ..parallel.spatial import (batch_moments, gather_width, global_width,
-                                local_columns, space_split)
-from ..parallel.spatial import pad_same as _pad_same
+                                local_columns, same_op, space_split)
 from ..parallel.tensor import (bev_mean, channel_range, gather_channels,
-                               local_channels, model_split)
+                               holds_slice, local_channels, model_split)
 from ..utils.mesh_axis import pmean_if_present
 from .attention import SELayer, SpatialAttention
 from .middle import update_running_stats
@@ -65,8 +66,8 @@ def identity_pose_bias(n: int = 7) -> torch.Tensor:
 def max_pool_mask(mask: torch.Tensor, kernel: int,
                   stride: int) -> torch.Tensor:
     """Max-pool an (N, 1, H, W) mask with SAME padding."""
-    return F.max_pool2d(_pad_same(mask, kernel, stride, float("-inf")),
-                        kernel, stride)
+    return same_op(lambda m: F.max_pool2d(m, kernel, stride), mask, kernel,
+                   stride, float("-inf"))
 
 
 def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype=None,
@@ -81,37 +82,47 @@ def _conv(conv: nn.Conv2d, x: torch.Tensor, dtype=None,
     b = None if conv.bias is None else conv.bias.to(x.dtype)
     if model_split():
         return _conv_model(conv, x, b, k, s, replicated)
-    return F.conv2d(_pad_same(x, k, s), conv.weight.to(x.dtype), b,
-                    s, 0, 1, conv.groups)
+    w = conv.weight.to(x.dtype)
+    return same_op(lambda xp: F.conv2d(xp, w, b, s, 0, 1, conv.groups), x,
+                   k, s)
 
 
 def _conv_model(conv, x, b, k, s, replicated):
     """The model-split conv: the input's channels gathered (unless it
     holds them all), then output channels [lo, hi), group by group for
-    a grouped conv, so that each slice reads its own group's inputs."""
-    if x.shape[1] != conv.in_channels:
-        x = gather_channels(x)
+    a grouped conv, so that each slice reads its own group's inputs.  A
+    rank without output channels computes the first and drops it (torch
+    refuses an empty conv)."""
+    if holds_slice(x, conv.in_channels):
+        x = gather_channels(x, conv.in_channels)
     w = conv.weight.to(x.dtype)
     cout, g = w.shape[0], conv.groups
     lo, hi = (0, cout) if replicated else channel_range(cout)
-    x = _pad_same(x, k, s)
-    if (lo, hi) == (0, cout):
-        return F.conv2d(x, w, b, s, 0, 1, g)
     og, ig = cout // g, w.shape[1]
-    parts = []
-    for gi in range(lo // og, (hi - 1) // og + 1):
-        a, z = max(lo, gi * og), min(hi, (gi + 1) * og)
-        parts.append(F.conv2d(x[:, gi * ig:(gi + 1) * ig], w[a:z],
-                              None if b is None else b[a:z], s))
-    return torch.cat(parts, dim=1)
+
+    def op(xp):
+        if lo == hi:
+            return F.conv2d(xp[:, :ig], w[:1], None if b is None else b[:1],
+                            s)[:, :0]
+        if (lo, hi) == (0, cout):
+            return F.conv2d(xp, w, b, s, 0, 1, g)
+        parts = []
+        for gi in range(lo // og, (hi - 1) // og + 1):
+            a, z = max(lo, gi * og), min(hi, (gi + 1) * og)
+            parts.append(F.conv2d(xp[:, gi * ig:(gi + 1) * ig], w[a:z],
+                                  None if b is None else b[a:z], s))
+        return torch.cat(parts, dim=1)
+    return same_op(op, x, k, s)
 
 
-def _cat_channels(parts, local: bool = True) -> torch.Tensor:
-    """Channel concat; under a model split, of the gathered parts, then
-    this rank's slice of it (``local``) or the whole."""
+def _cat_channels(parts, channels, local: bool = True) -> torch.Tensor:
+    """Channel concat of ``parts`` of ``channels`` channels each; under a
+    model split, of the gathered parts, then this rank's slice of it
+    (``local``) or the whole."""
     if not model_split():
         return torch.cat(parts, dim=1)
-    full = torch.cat([gather_channels(p) for p in parts], dim=1)
+    full = torch.cat([gather_channels(p, c) for p, c in zip(parts, channels)],
+                     dim=1)
     return local_channels(full) if local else full
 
 
@@ -137,7 +148,8 @@ class MaskConv(nn.Module):
                 max_pool_mask(mask, k, s)
         y = _conv(self.Conv_0, x * mask.to(x.dtype), self.dtype)
         ones = torch.ones((1, 1, k, k), dtype=y.dtype, device=y.device)
-        msum = F.conv2d(_pad_same(mask.to(y.dtype), k, s), ones, None, s)
+        msum = same_op(lambda m: F.conv2d(m, ones, None, s),
+                       mask.to(y.dtype), k, s)
         y = y / torch.clamp(msum, min=1.0)
         return y, (msum > 0).to(mask.dtype)
 
@@ -178,16 +190,17 @@ class Norm(nn.Module):
         xf = x.float()
         c = self.scale.shape[0]
         # under a model split this rank's slice of the channels
-        lo, hi = (0, c) if x.shape[1] == c else channel_range(c)
+        sliced = holds_slice(x, c)
+        lo, hi = channel_range(c) if sliced else (0, c)
         if self.training:
             mean, m2 = batch_moments(xf)
             if self.bn_type == "sync_bn":
                 mean = pmean_if_present(mean, "data")
                 m2 = pmean_if_present(m2, "data")
             var = torch.maximum(m2 - mean * mean, torch.zeros_like(m2))
-            if hi - lo < c:             # the running statistics whole
-                mean_all, var_all = (gather_channels(mean, 0),
-                                     gather_channels(var, 0))
+            if sliced:                  # the running statistics whole
+                mean_all, var_all = (gather_channels(mean, c, 0),
+                                     gather_channels(var, c, 0))
             else:
                 mean_all, var_all = mean, var
             update_running_stats(self, mean_all, var_all)
@@ -210,6 +223,7 @@ class BasicBlock(nn.Module):
                  use_sa: bool = False):
         super().__init__()
         conv = dict(dtype=dtype, normalized=normalized)
+        self.features = features
         self.MaskConv_0 = MaskConv(in_features, features, 3, stride, groups,
                                    **conv)
         self.Norm_0 = Norm(features, bn_type)
@@ -233,7 +247,7 @@ class BasicBlock(nn.Module):
         if hasattr(self, "SELayer_0"):
             y = self.SELayer_0(y)
         if hasattr(self, "SpatialAttention_0"):
-            y = self.SpatialAttention_0(y)
+            y = self.SpatialAttention_0(y, self.features)
         if self.downsample:
             x, mask = self.MaskConv_2(x, mask)
             x = self.Norm_2(x)
@@ -252,6 +266,7 @@ class FireBlock(nn.Module):
         super().__init__()
         half = features // 2
         conv = dict(dtype=dtype, normalized=normalized)
+        self.sizes = (half, features - half)
         self.MaskConv_0 = MaskConv(in_features, half, 1, stride, groups,
                                    **conv)
         self.Norm_0 = Norm(half, bn_type)
@@ -264,7 +279,7 @@ class FireBlock(nn.Module):
         a = F.relu(self.Norm_0(a))
         b, m = self.MaskConv_1(x, mask)
         b = F.relu(self.Norm_1(b))
-        return _cat_channels([a, b]), m
+        return _cat_channels([a, b], self.sizes), m
 
 
 class BottleneckBlock(nn.Module):
@@ -440,14 +455,15 @@ class BEVOdomNet(nn.Module):
         n_up = len(cfg.upsample_strides)
         for i, (stride, feats) in enumerate(zip(cfg.upsample_strides,
                                                 cfg.num_upsample_filters)):
-            cin += cfg.num_filters[-(i + 1)]
+            cat = (cin, cfg.num_filters[-(i + 1)])
+            cin = sum(cat)
             up = add("ConvBNRelu", ConvBNRelu(cin, feats, 3, bn, dt))
             head = None
             if cfg.use_deep_supervision and i < n_up - 1:
                 head = (add("ConvBNRelu",
                             ConvBNRelu(feats, feats // 2, 3, bn, dt)),
                         add("Conv", nn.Conv2d(feats // 2, 7, 1)))
-            self._ups.append((stride, up, head))
+            self._ups.append((stride, cat, up, head))
             cin = feats
         if not cfg.dense_predict:
             # FC head: the encoder bottleneck pooled, two dense layers
@@ -506,8 +522,8 @@ class BEVOdomNet(nn.Module):
         py_masks.reverse()
 
         py_preds = []
-        for i, (stride, up, head) in enumerate(self._ups):
-            x = _cat_channels([x, skips[-(i + 1)]], local=False)
+        for i, (stride, cat, up, head) in enumerate(self._ups):
+            x = _cat_channels([x, skips[-(i + 1)]], cat, local=False)
             x = x.repeat_interleave(stride, 2).repeat_interleave(stride, 3)
             x = up(x)
             if head is not None:
@@ -537,7 +553,7 @@ class BEVOdomNet(nn.Module):
         # 1-channel level mask broadcasts against the finer 2-channel one
         for p in range(2, len(pyramid) + 1):
             finer = pyramid[-(p - 1)][1]
-            pooled = F.avg_pool2d(_pad_same(finer, 3, 2), 3, 2)
+            pooled = same_op(lambda m: F.avg_pool2d(m, 3, 2), finer, 3, 2)
             pyramid[-p] = (pyramid[-p][0], pyramid[-p][1] * pooled)
         pyramid = [(_gather_w(a), _gather_w(b)) for a, b in pyramid]
 
@@ -567,14 +583,15 @@ class BEVOdomNet(nn.Module):
         identity-pose bias; ``odom_format="r(x+t)"`` rotates t.  The
         maps are placeholders: a zero tq map, unit confidences, no
         pyramid."""
-        h = bev_mean(bottleneck).to(bottleneck.dtype)
+        h = bev_mean(bottleneck, self.Dense_0.in_features).to(
+            bottleneck.dtype)
         h = F.relu(self.Dense_0(h.float()))
         odom = self.Dense_1(h)
         t, q = odom[:, :3], odom[:, 3:]
         if self.cfg.odom_format == "r(x+t)":
             t = rotate_vec_by_q(t, qnormalize(q))
         P, _, H, W = x.shape
-        W = global_width(W)
+        W = global_width(H, W)
         ones = torch.ones((P, H, W, 1), device=x.device)
         return {
             "odometry": torch.cat([t, qnormalize(q)], dim=-1).float(),

@@ -17,10 +17,10 @@ The sparse middle's output contract, computed with dense 2-D convs:
 
 The convs compute in bfloat16 with bfloat16 bias, as the JAX module
 hard-codes; the dense head computes in float32.  Padding follows flax's
-``padding="SAME"`` (``bev_net._pad_same``).  Submodules carry the flax
-auto-names (``Conv2dBNRelu_<i>``, ``Dense_<i>``) so ``convert.py`` maps
-the parameters by name.  ``MiddleCfg.remat`` is accepted and not
-applied, as for the sparse middle.
+``padding="SAME"`` (``parallel/spatial.py::pad_same``).  Submodules
+carry the flax auto-names (``Conv2dBNRelu_<i>``, ``Dense_<i>``) so
+``convert.py`` maps the parameters by name.  ``MiddleCfg.remat`` is
+accepted and not applied, as for the sparse middle.
 """
 from __future__ import annotations
 
@@ -31,7 +31,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import MiddleCfg
-from .bev_net import Norm, _pad_same
+from ..parallel.spatial import pad_same
+from .bev_net import Norm
 
 _BF16 = torch.bfloat16
 # the encoder's (width index into (c1, c2, c3) doubled, stride) plan
@@ -55,7 +56,7 @@ class Conv2dBNRelu(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.Conv_0
         s = c.stride[0]
-        y = F.conv2d(_pad_same(x, 3, s), c.weight.to(_BF16), None, s)
+        y = F.conv2d(pad_same(x, 3, s), c.weight.to(_BF16), None, s)
         y = y + c.bias.to(_BF16).view(1, -1, 1, 1)
         if hasattr(self, "Norm_0"):
             y = self.Norm_0(y)

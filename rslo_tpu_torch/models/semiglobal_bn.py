@@ -33,7 +33,7 @@ import torch
 from torch import nn
 
 from ..parallel.spatial import batch_moments
-from ..parallel.tensor import channel_range, gather_channels
+from ..parallel.tensor import channel_range, gather_channels, holds_slice
 from ..utils.mesh_axis import pmean_if_present
 
 STATS = ("mean", "var", "mean_dyn_mom", "var_dyn_mom", "mean_g2", "var_g2",
@@ -77,17 +77,18 @@ class SemiGlobalSyncBN(nn.Module):
 
     def _channels(self, x: torch.Tensor) -> tuple[int, int]:
         """[lo, hi) of the channels ``x`` holds: all of them, or this
-        model rank's slice."""
+        model rank's slice (which may be empty)."""
         c = self.scale.shape[0]
-        return (0, c) if x.shape[1] == c else channel_range(c)
+        return channel_range(c) if holds_slice(x, c) else (0, c)
 
     @torch.no_grad()
     def update_statistics(self, x: torch.Tensor):
         mu, m2 = batch_moments(x.float())
         mu = pmean_if_present(mu, "data")
         m2 = pmean_if_present(m2, "data")
-        if self._channels(x) != (0, self.scale.shape[0]):
-            mu, m2 = gather_channels(mu, 0), gather_channels(m2, 0)
+        c = self.scale.shape[0]
+        if holds_slice(x, c):
+            mu, m2 = gather_channels(mu, c, 0), gather_channels(m2, c, 0)
         var = torch.clamp(m2 - mu * mu, min=0.0)
         self.mean.copy_(self.mean_dyn_mom * mu +
                         (1 - self.mean_dyn_mom) * self.mean)

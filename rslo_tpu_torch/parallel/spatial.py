@@ -13,7 +13,9 @@ partitioner, so the BEV net's layers ask this module for them:
   pair tensor.  W splits into chunks of the encoder's stride product
   (8), the first ranks taking one more chunk where they do not divide
   evenly: the shipped 176 columns go 88/88 over 2 ranks and 48/48/40/40
-  over 4.  Fewer chunks than ranks raise ``ValueError`` (GSPMD pads).
+  over 4.  Ranks beyond the chunk count hold no columns (16 go 8/8/0/0
+  over 4, where GSPMD pads): they compute nothing but join every
+  collective, in the same order as the others.
 - ``pad_same`` pads as flax's SAME does for the GLOBAL width: the inner
   edges take the neighbours' columns (halos), only the global edges the
   pad value (-inf for the mask max-pool).  So every conv, pool and
@@ -24,8 +26,11 @@ partitioner, so the BEV net's layers ask this module for them:
   the plain and the semi-global BN) and spatial means sum over the axis
   (``utils/mesh_axis.py::psum_if_present``).
 - A halo may be wider than a neighbour's share (the spatial gate's
-  7 x 7 conv at the encoder's last stage of a 4-rank split): it takes
-  columns of the ranks beyond, as GSPMD's exchange does.
+  7 x 7 conv at the encoder's last stage of a 4-rank split), or the
+  neighbour may hold none: it takes columns of the ranks beyond, as
+  GSPMD's exchange does.
+- Rows are never split, so a map's height tells its level on every
+  rank, one without columns too (``level_widths``).
 
 Transport: the halos and gathers are ``all_gather_if_present``, bits
 through an integer all-reduce, since gloo takes CUDA tensors only for
@@ -49,7 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.mesh_axis import (all_gather_if_present, axis_index, axis_size,
-                               bind_axis, psum_if_present)
+                               bind_axis, gather_shares, psum_if_present)
 
 
 @dataclasses.dataclass
@@ -62,6 +67,7 @@ class _Split:
     model: bool
     block: int
     widths: Optional[tuple] = None
+    height: Optional[int] = None
 
 
 _SPLIT: Optional[_Split] = None
@@ -93,16 +99,12 @@ def _active(split: _Split):
 def split_widths(width: int, ranks: int, block: int) -> tuple:
     """Each rank's columns of a ``width``-wide map cut into chunks of
     ``block`` columns, the first ``width // block % ranks`` ranks taking
-    one chunk more."""
+    one chunk more; with fewer chunks than ranks the last ranks hold
+    none."""
     if width % block:
         raise ValueError(f"BEV width {width} is not a multiple of the "
                          f"encoder's stride product {block}")
-    blocks = width // block
-    if blocks < ranks:
-        raise ValueError(
-            f"the BEV width {width} holds {blocks} chunks of {block} "
-            f"columns, fewer than the {ranks} ranks of the space axis")
-    base, extra = divmod(blocks, ranks)
+    base, extra = divmod(width // block, ranks)
     return tuple((base + (r < extra)) * block for r in range(ranks))
 
 
@@ -116,44 +118,50 @@ def bev_constraint(x: torch.Tensor) -> torch.Tensor:
         return x
     s.widths = (split_widths(x.shape[2], axis_size("space"), s.block)
                 if s.space else (x.shape[2],))
+    s.height = x.shape[1]
     if not s.space:
         return x
     r = axis_index("space")
     return x[:, :, sum(s.widths[:r]):sum(s.widths[:r + 1])]
 
 
-def level_widths(local: int) -> tuple:
-    """Every space rank's columns at the BEV level where this rank holds
-    ``local`` of them (the pair tensor's split, divided by the level's
-    stride)."""
-    widths = active().widths
-    own = widths[axis_index("space")]
-    if own % local or any(w % (own // local) for w in widths):
-        raise ValueError(f"{local} columns are not a level of the split "
-                         f"{widths}")
-    return tuple(w // (own // local) for w in widths)
+def level_widths(height: int, local: int) -> tuple:
+    """Every space rank's columns at the BEV level of ``height`` rows,
+    where this rank holds ``local`` columns: the pair tensor's split
+    divided by the level's stride, the pair tensor's rows over
+    ``height`` (rows are never split, so a rank without columns knows
+    its level too)."""
+    s = active()
+    stride, rem = divmod(s.height, height)
+    widths = tuple(w // stride for w in s.widths) if stride else ()
+    if rem or not stride or any(w % stride for w in s.widths) or \
+            widths[axis_index("space")] != local:
+        raise ValueError(f"a map of {height} rows and {local} columns is "
+                         f"not a level of the split {s.widths} of "
+                         f"{s.height} rows")
+    return widths
 
 
-def global_width(local: int) -> int:
-    return sum(level_widths(local)) if space_split() else local
+def global_width(height: int, local: int) -> int:
+    """The global width of a map of ``height`` rows of which this rank
+    holds ``local`` columns."""
+    return sum(level_widths(height, local)) if space_split() else local
 
 
 def gather_width(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """Every space rank's columns of ``x`` along ``dim``, concatenated
-    (``x`` itself without a space split)."""
+    """Every space rank's columns of ``x`` along ``dim`` (the dim before
+    it holds the rows), concatenated (``x`` itself without a space
+    split)."""
     if not space_split():
         return x
-    sizes = level_widths(x.shape[dim])
-    pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [0, max(sizes) -
-                                                   x.shape[dim]]
-    parts = all_gather_if_present(F.pad(x, pad), "space")
-    return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)],
-                     dim)
+    return gather_shares(x, "space", level_widths(x.shape[dim - 1],
+                                                  x.shape[dim]), dim)
 
 
 def local_columns(full: torch.Tensor, local: int, dim: int) -> torch.Tensor:
-    """This rank's ``local`` columns of a gathered ``full`` map."""
-    sizes = level_widths(local)
+    """This rank's ``local`` columns of a gathered ``full`` map (the dim
+    before ``dim`` holds the rows)."""
+    sizes = level_widths(full.shape[dim - 1], local)
     return full.narrow(dim, sum(sizes[:axis_index("space")]), local)
 
 
@@ -170,7 +178,8 @@ def halo_pad(x: torch.Tensor, widths: tuple, left: int, right: int,
     the columns of the ranks to the left (r-1, r-2, ...) and to the
     right (r+1, r+2, ...) until there are enough, ``value`` only past
     the global edges.  ``widths`` are every space rank's columns at this
-    level, so a halo wider than a neighbour's share reaches past it.
+    level, so a halo wider than a neighbour's share (or none) reaches
+    past it.
     One collective: every rank contributes its first and its last
     ``min(h, share)`` columns, padded to h = max(left, right)."""
     if left == 0 and right == 0:
@@ -216,13 +225,28 @@ def pad_same(x: torch.Tensor, k: int, s: int,
         if ph == (0, 0) and pw == (0, 0):
             return x
         return F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=value)
-    widths = level_widths(x.shape[-1])
+    widths = level_widths(x.shape[-2], x.shape[-1])
     if any(w % s for w in widths):
         raise ValueError(f"a stride-{s} op on the columns {widths}: every "
                          f"rank's share must be a multiple of the stride")
     if ph != (0, 0):
         x = F.pad(x, (0, 0, ph[0], ph[1]), value=value)
     return halo_pad(x, widths, *same_pad(sum(widths), k, s), value)
+
+
+def same_op(op, x: torch.Tensor, k: int, s: int,
+            value: float = 0.0) -> torch.Tensor:
+    """``op`` (a conv or a pool of kernel ``k`` and stride ``s`` that
+    pads nothing itself) over ``x`` padded as flax's SAME does
+    (``pad_same``).  A rank holding no columns of a space split takes
+    part in the halo exchange and returns ``op``'s output without
+    columns: torch's convs and pools refuse an empty output, so ``op``
+    runs on ``k`` columns of the pad value and the column it gives is
+    dropped."""
+    xp = pad_same(x, k, s, value)
+    if x.shape[-1] or not space_split():
+        return op(xp)
+    return op(F.pad(xp[..., :0], (0, k), value=value))[..., :0]
 
 
 def batch_moments(xf: torch.Tensor):
@@ -233,8 +257,8 @@ def batch_moments(xf: torch.Tensor):
     dims = (0,) + tuple(range(2, xf.dim()))
     if not space_split():
         return torch.mean(xf, dim=dims), torch.mean(xf * xf, dim=dims)
-    n = xf.numel() // xf.shape[1] // xf.shape[-1] * global_width(
-        xf.shape[-1])
+    n = math.prod(xf.shape[d] for d in dims[:-1]) * global_width(
+        xf.shape[-2], xf.shape[-1])
     return (psum_if_present(torch.sum(xf, dim=dims), "space") / n,
             psum_if_present(torch.sum(xf * xf, dim=dims), "space") / n)
 
@@ -245,6 +269,9 @@ def split_forward(net, mesh, axes: dict, train: bool):
     mesh axis it names, the BEV stage split along those axes.  The maps
     come out gathered and the odometry replicated: what the unsharded
     forward returns, on every rank."""
+    if mesh is None:
+        raise ValueError("this rank is outside the grid (grid_mesh gave it "
+                         "None): it runs no split forward")
     block = math.prod(net.cfg.odom.layer_strides)
 
     def fwd(example):

@@ -24,11 +24,13 @@ its own share of that gradient, without an error.
 
 The "space" and "model" axes (``rslo_tpu_torch/parallel/``) shard the
 BEV stage's width and channels over a ``GridMesh``, a (space x model)
-grid of ranks with a process group per row and per column.  Their
-halos and gathers are ``all_gather_if_present``: every rank's bits
-through an integer all-reduce (gloo takes CUDA tensors only for
-``all_reduce`` and ``broadcast``), exact for -0.0 and NaN, whose
-backward all-reduces the cotangent and keeps the rank's share.
+grid of some or all ranks with a process group per row and per
+column.  Their halos and gathers are ``all_gather_if_present``: every
+rank's bits through an integer all-reduce (gloo takes CUDA tensors only
+for ``all_reduce`` and ``broadcast``), exact for -0.0 and NaN, whose
+backward all-reduces the cotangent and keeps the rank's share; shares
+of uneven (or no) width or channels go through ``gather_shares``, which
+pads them to the largest.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+import torch.nn.functional as F
 
 AXES = ("data", "space", "model")   # the mesh axis names the package uses
 _BOUND: dict = {}                # axis name -> (group, size, rank)
@@ -159,14 +162,29 @@ def all_gather_if_present(x: torch.Tensor, name: str) -> torch.Tensor:
     return _AllGather.apply(x, group, rank, size)
 
 
+def gather_shares(x: torch.Tensor, name: str, sizes: tuple,
+                  dim: int) -> torch.Tensor:
+    """The whole of a tensor split along ``dim`` over the bound axis
+    ``name``, rank r holding ``sizes[r]`` of it (``x`` is this rank's
+    share, which may be empty): every share padded to the largest (the
+    all-reduce takes one shape), gathered, cut back and concatenated in
+    rank order.  Differentiable: the backward is this rank's unpadded
+    share of the all-reduced cotangent."""
+    pad = [0, 0] * (x.dim() - 1 - dim % x.dim()) + [0, max(sizes) -
+                                                   x.shape[dim]]
+    parts = all_gather_if_present(F.pad(x, pad), name)
+    return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)],
+                     dim)
+
+
 @dataclasses.dataclass(frozen=True)
 class GridMesh:
-    """A (space x model) grid of every rank of the default process group
-    (JAX: a 2-D ``Mesh`` with axes ("space", "model")): rank ``s * model
-    + m`` sits at row ``s``, column ``m``.  ``space_group`` holds the
-    ranks of this rank's column (the same ``m``: they split the BEV
-    width), ``model_group`` those of its row (the same ``s``: they split
-    the channels)."""
+    """A (space x model) grid of ranks of the default process group
+    (JAX: a 2-D ``Mesh`` with axes ("space", "model")): the grid's
+    ``i``-th rank sits at row ``i // model``, column ``i % model``.
+    ``space_group`` holds the ranks of this rank's column (the same
+    column: they split the BEV width), ``model_group`` those of its row
+    (the same row: they split the channels)."""
     space: int
     model: int
     space_index: int
@@ -184,18 +202,29 @@ class GridMesh:
                          f"not {name!r}")
 
 
-def grid_mesh(space: int, model: int = 1) -> GridMesh:
-    """The (space x model) grid over every rank of the initialized
-    default group (``space * model`` must be its size).  Every rank
-    calls ``dist.new_group`` for every row and every column, rows
-    first, in the same order, as torch requires."""
+def grid_mesh(space: int, model: int = 1,
+              ranks=None) -> Optional[GridMesh]:
+    """The (space x model) grid over ``ranks`` of the initialized
+    default group, in grid order (JAX: ``Mesh(devices[:n])``; by default
+    every rank of the group, whose size must then be ``space *
+    model``).  Every rank of the group calls ``dist.new_group`` for
+    every row and every column, rows first, in the same order, as torch
+    requires, and a rank outside the grid gets None: no axis, and no
+    split forward to run."""
     world, rank = dist.get_world_size(), dist.get_rank()
-    if space * model != world:
+    ranks = list(range(world) if ranks is None else ranks)
+    if len(ranks) != space * model:
         raise ValueError(f"a {space} x {model} grid needs {space * model} "
-                         f"ranks, the group has {world}")
-    s_i, m_i = divmod(rank, model)
-    rows = [dist.new_group([s * model + m for m in range(model)])
+                         f"ranks, it was given {len(ranks)}")
+    if len(set(ranks)) != len(ranks) or not all(0 <= q < world
+                                                for q in ranks):
+        raise ValueError(f"the grid's ranks {ranks} are not distinct ranks "
+                         f"of the group of {world}")
+    rows = [dist.new_group([ranks[s * model + m] for m in range(model)])
             for s in range(space)]
-    cols = [dist.new_group([s * model + m for s in range(space)])
+    cols = [dist.new_group([ranks[s * model + m] for s in range(space)])
             for m in range(model)]
+    if rank not in ranks:
+        return None
+    s_i, m_i = divmod(ranks.index(rank), model)
     return GridMesh(space, model, s_i, m_i, cols[m_i], rows[s_i])

@@ -251,20 +251,25 @@ def ba_sharded(mesh, shards, iters):
 
 # -- the split BEV stage (test_torch_spatial.py) ----------------------------
 
-def bev_splits(mesh, nets, examples, cases, halo, grad):
+def bev_splits(mesh, nets, examples, cases, halo, grad, grad_sizes):
     """Each case: (name, net key, example key, grid (space, model), axes
     ("space", "model" or both), train).  ``nets`` maps a key to (config
-    JSON, state dict), ``examples`` to numpy arrays.  Builds the 4 x 1
-    and 2 x 2 grids of the 4 ranks, runs each case's split forward
-    (``parallel/``) under no_grad, and returns per case the outputs (and
-    in train mode the BEV net's buffers after it); plus ``halo``'s
+    JSON, state dict), ``examples`` to numpy arrays.  Builds the 4 x 1,
+    2 x 2 and 1 x 4 grids of the 4 ranks and the 1 x 3 grid of ranks
+    0-2, runs each case's split forward (``parallel/``) under no_grad,
+    and returns per case the outputs (and in train mode the BEV net's
+    buffers after it), None on a rank outside the case's grid; the
+    1 x 3 grid's place of this rank (``grid13``); plus ``halo``'s
     cases: (name, NCHW input, conv weight, kernel, stride) as a stride-k
     conv through ``bev_net._conv`` on this rank's columns of a 4-rank
     width split; ``halo_wide``: ``halo_pad`` of 3 columns each side on
     this rank's columns of a 4/4/2/2 split of a 12-column map (wider
-    than the 2-column shares); and ``grad``: L = sum(gather(x_r) *
-    grad[r]) over the 4-rank space axis with x_r = r, its gather and
-    dL/dx_r."""
+    than the 2-column shares), and ``halo_empty`` the same on a 4/4/0/0
+    split of an 8-column map (rank 2 holds none, rank 1's right
+    neighbours none); ``grad``: L = sum(gather(x_r) * grad[r]) over the
+    4-rank space axis with x_r = r, its gather and dL/dx_r; and
+    ``grad_uneven``: the same through ``gather_shares`` with rank r
+    holding ``grad_sizes[r]`` elements (r each)."""
     from rslo_tpu_torch.config.schema import PipelineCfg
     from rslo_tpu_torch.models import bev_net
     from rslo_tpu_torch.models.net import OdomNet
@@ -274,13 +279,20 @@ def bev_splits(mesh, nets, examples, cases, halo, grad):
     from rslo_tpu_torch.parallel.tensor import (make_model_forward,
                                                 make_spatial_model_forward)
     from rslo_tpu_torch.utils.mesh_axis import (all_gather_if_present,
-                                                bind_axis, grid_mesh)
-    grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2)}
+                                                bind_axis, gather_shares,
+                                                grid_mesh)
+    grids = {(4, 1): grid_mesh(4, 1), (2, 2): grid_mesh(2, 2),
+             (1, 4): grid_mesh(1, 4), (1, 3): grid_mesh(1, 3, ranks=range(3))}
+    g13 = grids[(1, 3)]
+    out = {"grid13": None if g13 is None else (g13.space_index,
+                                               g13.model_index)}
     makers = {("space",): make_spatial_forward,
               ("model",): make_model_forward,
               ("space", "model"): make_spatial_model_forward}
-    out = {}
     for name, key, ex_key, grid, axes, train in cases:
+        if grids[tuple(grid)] is None:
+            out[name] = None
+            continue
         cfg_json, state = nets[key]
         net = OdomNet(PipelineCfg.from_json(cfg_json))
         net.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
@@ -315,9 +327,20 @@ def bev_splits(mesh, nets, examples, cases, halo, grad):
                                                  sum(widths[:r + 1])]
     with bind_axis("space", g.space_group, g.space, g.space_index):
         out["halo_wide"] = _np(halo_pad(cols, widths, 3, 3, -1.0))
+    widths = (4, 4, 0, 0)
+    cols = torch.arange(8.0).reshape(1, 1, 8)[..., sum(widths[:r]):
+                                              sum(widths[:r + 1])]
+    with bind_axis("space", g.space_group, g.space, g.space_index):
+        out["halo_empty"] = _np(halo_pad(cols, widths, 3, 3, -1.0))
     x = torch.full((3,), float(g.space_index), requires_grad=True)
     with bind_axis("space", g.space_group, g.space, g.space_index):
         y = all_gather_if_present(x, "space")
         torch.sum(y * torch.tensor(grad[g.space_index])).backward()
     out["grad"] = dict(gathered=_np(y), dx=_np(x.grad))
+    x = torch.full((grad_sizes[r],), float(r), requires_grad=True)
+    with bind_axis("space", g.space_group, g.space, g.space_index):
+        y = gather_shares(x, "space", grad_sizes, 0)
+        torch.sum(y * torch.tensor(grad[r].reshape(-1)[:y.numel()])
+                  ).backward()
+    out["grad_uneven"] = dict(gathered=_np(y), dx=_np(x.grad))
     return out
