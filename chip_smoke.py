@@ -22,7 +22,8 @@ option of the schema, with DenseMiddleCov; data-parallel training
 and evaluation: the train verb on an NCCL group, and two ranks sharing
 the card over gloo; the BEV stage split over four ranks sharing the
 card (spatial, tensor and both), the ``bench`` verb, and the small
-modules only tests reach.  Phases (each one exits non-zero when it fails):
+modules only tests reach; the accuracy proxy's script end to end at a
+small size.  Phases (each one exits non-zero when it fails):
 
   1. require a CUDA card; print its name and power limit; turn TF32 off
   2. build the kernels (one nvcc per source, all at once)
@@ -256,6 +257,19 @@ modules only tests reach.  Phases (each one exits non-zero when it fails):
      against this process's unsplit forward within SPLIT_REL_TOL, each
      grid rank's launches those of the unsplit forward, ms a forward a
      rank beside the unsplit forward's
+ 27. the accuracy proxy (``proxy_phases``) through
+     ``scripts/torch_accuracy_proxy.py``'s own stages at a small size:
+     ``build`` in one process a sequence (two train curves of 24 frames
+     and the val loop of 32, at the full beam grid, the urban speed
+     profile), the npz store where h5py is missing (else h5); ``train``
+     ``PillarMiddleCov`` 20 steps and ``SparseMiddleCov`` 10, with the
+     eval hook every 10: each step's B1, B2 and B3 launches equal the
+     prediction, the hook's B1 its windows' and first batch's frames,
+     finite logged metrics; B3 bit-equal to its plain version on the
+     pillar run's first association; ``eval --ckpt_step best
+     --refine_loops`` of each (launches as predicted, every number
+     finite, the JAX package's result layout); ``report``; render and
+     record ms a frame, train step ms and eval windows/s
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -277,7 +291,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-25 beside them) and the result (JSON); the card's
+of phases 14-27 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -4389,6 +4403,261 @@ def padded_split_phases(cfg, frames, reset_counts, counts, dev, smi_line,
     return launches
 
 
+# -- phase 27: the accuracy proxy's script -----------------------------------
+
+# scripts/torch_accuracy_proxy.py at a small size: two train curves and
+# the val loop rendered at the full beam grid with the r5b recipe's
+# speed profile (one build process a sequence), each middle trained for
+# its steps with an eval every PROXY_EVAL_EVERY, then eval --ckpt_step
+# best --refine_loops of each and the report.  The script's
+# --refine_loops separates loops by 40 frames, so a 32-frame val loop
+# has no candidate (phase 21 closes loops on a rendered revisit)
+PROXY_DIR = os.path.join(REPO, "build", "smoke_proxy")
+PROXY_SCRIPT = os.path.join(REPO, "scripts", "torch_accuracy_proxy.py")
+PROXY_SEQS = {0: (24, "curve", 8.0), 1: (24, "curve", 11.0),
+              7: (32, "loop", 8.0)}
+PROXY_PROFILE = "urban"
+PROXY_STEPS = (("PillarMiddleCov", 20), ("SparseMiddleCov", 10))
+PROXY_EVAL_EVERY = 10
+# a result of the JAX package's scripts/accuracy_proxy.py eval
+# --refine_loops: the layout the port's result must have
+PROXY_JAX_RESULT = os.path.join(
+    REPO, "results", "result_PillarMiddleCov_r5b_sbest_refine_loops.json")
+
+
+def load_proxy(root, seqs):
+    """``scripts/torch_accuracy_proxy.py`` as a module whose artifacts go
+    under ``root``, with ``seqs`` ({seq: (frames, pattern, speed)}) for
+    its sequences: the last one is the val sequence, the others train."""
+    spec = importlib.util.spec_from_file_location("torch_accuracy_proxy",
+                                                  PROXY_SCRIPT)
+    proxy = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(proxy)
+    proxy.ROOT = proxy.Path(root)
+    proxy.TREE = proxy.ROOT / "kitti_tree"
+    proxy.H5 = proxy.ROOT / "proxy.h5"
+    proxy.SEQS = dict(seqs)
+    proxy.TRAIN_SEQS, proxy.VAL_SEQS = tuple(seqs)[:-1], tuple(seqs)[-1:]
+    return proxy
+
+
+def proxy_build(spec_path):
+    """One build process of phase 27, started after the kernels' build:
+    ``build --seqs S`` of the proxy's script for the spec's sequence (the
+    render, and the npz store's records where h5py is missing), timed;
+    the result goes to the spec's ``out``."""
+    import functools
+    import torch
+    from rslo_tpu_torch.utils import world
+    spec = torch.load(spec_path, weights_only=False)
+    world.write_kitti_tree = functools.partial(
+        world.write_kitti_tree, n_beams=spec["beams"][0],
+        n_azimuth=spec["beams"][1], world_kwargs=spec["world_kwargs"])
+    proxy = load_proxy(spec["root"], spec["seqs"])
+    write = proxy.write_npz_store
+    store_s = []
+
+    def timed_write(*a, **kw):
+        t0 = time.perf_counter()
+        write(*a, **kw)
+        store_s.append(time.perf_counter() - t0)
+
+    proxy.write_npz_store = timed_write
+    t0 = time.perf_counter()
+    proxy.main(["build", "--seqs", str(spec["seq"]), "--profile",
+                PROXY_PROFILE])
+    total = time.perf_counter() - t0
+    torch.save({"seq": spec["seq"], "total_s": total,
+                "store_s": sum(store_s)}, spec["out"])
+
+
+def finite_numbers(x, np):
+    """Every float in a nested result (dicts, lists) is finite."""
+    if isinstance(x, dict):
+        return all(finite_numbers(v, np) for v in x.values())
+    if isinstance(x, (list, tuple)):
+        return all(finite_numbers(v, np) for v in x)
+    return not isinstance(x, float) or bool(np.isfinite(x))
+
+
+def result_keys(x):
+    """A result's nested key structure, without the per-length and
+    per-speed tables (their keys follow the trajectory)."""
+    if not isinstance(x, dict):
+        return None
+    return {k: result_keys(v) for k, v in x.items()
+            if k not in ("segments", "speed_bins")}
+
+
+def proxy_phases(rb_ops, counted, reset_counts, counts, dev, smi_line, np,
+                 torch, seqs=PROXY_SEQS, steps=PROXY_STEPS,
+                 beams=WORLD_BEAMS, world_kwargs=None, cfg_hook=None):
+    """Phase 27: the accuracy proxy's script (``scripts/
+    torch_accuracy_proxy.py``) through its own stages: ``build`` one
+    process a sequence of ``seqs`` at ``beams`` (``world_kwargs`` shrinks
+    the world for a rehearsal), then the npz store (h5 where h5py is
+    installed); ``train`` each middle of ``steps`` for its steps with
+    the eval hook every PROXY_EVAL_EVERY (each step's launches against
+    the prediction, the hook's against its windows); ``eval --ckpt_step
+    best --refine_loops`` of each; ``report``.  ``cfg_hook`` wraps the
+    script's ``base_cfg`` (a rehearsal's tiny model).  ``rb_ops`` are
+    the train frame's convs (``predicted_launches``).  Returns each
+    path's launches by kernel."""
+    from rslo_tpu_torch.eval import runner
+    from rslo_tpu_torch.losses import consistency
+    from rslo_tpu_torch.ops.chamfer import nn_search, nn_search_plain
+    from rslo_tpu_torch.pgo import loop_closure
+    from rslo_tpu_torch.train import loop as train_loop
+    t_phase = time.perf_counter()
+    shutil.rmtree(PROXY_DIR, ignore_errors=True)
+    os.makedirs(PROXY_DIR)
+    # -- 27a. build: one process a sequence, then the store -----------------
+    specs = [{"rank": s, "seq": s, "seqs": seqs, "root": PROXY_DIR,
+              "beams": beams, "world_kwargs": world_kwargs,
+              "out": os.path.join(PROXY_DIR, f"build_{s:02d}.pt")}
+             for s in seqs]
+    t0 = time.perf_counter()
+    built = run_dp_ranks(specs, torch, entry="proxy_build", phase="phase 27")
+    build_s = time.perf_counter() - t0
+    proxy = load_proxy(PROXY_DIR, seqs)
+    if cfg_hook is not None:
+        proxy.base_cfg = cfg_hook(proxy.base_cfg)
+    kind = proxy.store_kind()
+    store_s = sum(b["store_s"] for b in built)
+    if kind == "h5":
+        t0 = time.perf_counter()
+        proxy.main(["build", "--h5_only", "--profile", PROXY_PROFILE])
+        store_s = time.perf_counter() - t0
+    n_frames = sum(n for n, _, _ in seqs.values())
+    render_ms = sum(b["total_s"] - b["store_s"] for b in built) * 1e3 / \
+        n_frames
+    record_ms = store_s * 1e3 / n_frames
+    store = sorted(p.name for p in proxy.ROOT.glob(
+        "proxy_*.npz" if kind == "npz" else "proxy.h5"))
+    say(f"[proxy] build: {len(seqs)} processes ("
+        + ", ".join(f"seq {s:02d}: {n} {pat} at {v} m/s"
+                    for s, (n, pat, v) in seqs.items())
+        + f", profile {PROXY_PROFILE}, {beams[0]} x {beams[1]} beams) in "
+        f"{build_s:.1f} s; render {render_ms:.1f} ms a frame, records "
+        f"{record_ms:.1f} ms a frame (host, the processes side by side); "
+        f"the {kind} store {store}; {smi_line}")
+    if len(store) != (len(seqs) if kind == "npz" else 1):
+        fail(f"proxy build: the {kind} store holds {store}")
+    # -- 27b. train each middle through the script -------------------------
+    launches, step_ms, first_search = {}, {}, None
+    for middle, n in steps:
+        cfg = proxy.base_cfg(middle, n)
+        reset_counts()
+        t0 = time.perf_counter()
+        with StepRecorder(train_loop, counts, torch) as rec, \
+                Timed(consistency, "nn_search", torch) as searches, \
+                Timed(runner, "run_eval", torch) as evals:
+            state = proxy.main(["train", "--middle", middle, "--steps",
+                                str(n), "--steps_per_eval",
+                                str(PROXY_EVAL_EVERY)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        total = counts()
+        if state.step != n or len(rec.records) != n:
+            fail(f"proxy train {middle}: ended at {state.step}, "
+                 f"{len(rec.records)} steps recorded")
+        for k, (warm, got, ms) in enumerate(rec.records):
+            if middle == "PillarMiddleCov":
+                want = dict.fromkeys(counted, 0)
+                want["nn_search"] = (cfg.loss.warmup_icp_iter if warm
+                                     else cfg.loss.icp_iter)
+            else:
+                want = predicted_launches(rb_ops, cfg, warm)
+            if warm != (k <= cfg.loss.warmup_steps) or got != \
+                    {**dict.fromkeys(counted, 0), **want}:
+                fail(f"proxy train {middle} step {k}: warmup {warm}, "
+                     f"launches {got}, predicted {want}")
+        in_steps = {k: sum(c[k] for _, c, _ in rec.records)
+                    for k in counted}
+        # the eval hook: each window's 2 frames and the image forward on
+        # the first batch's L frames, 14 convs a frame without the
+        # covariance decoder
+        windows = [c[3]["_meta"]["windows"] for c in evals.calls]
+        hook = dict.fromkeys(counted, 0)
+        if middle != "PillarMiddleCov":
+            hook["gather_matmul"] = ENCODER_CONVS * sum(
+                2 * w + cfg.data.seq_length for w in windows)
+        if {k: total[k] - in_steps[k] for k in counted} != hook or \
+                len(windows) != n // PROXY_EVAL_EVERY:
+            fail(f"proxy train {middle}: launches {total}, in the steps "
+                 f"{in_steps}; the eval hook's predicted {hook} over "
+                 f"{windows} windows")
+        mdir = proxy._model_dir(middle, False)
+        with open(os.path.join(mdir, "log.json.lst")) as fh:
+            log = [json.loads(line) for line in fh]
+        train_rows = [r for r in log if "t_err_gt" in r]
+        if not all(finite_numbers(r, np) for r in log) or not train_rows:
+            fail(f"proxy train {middle}: non-finite or missing metrics")
+        with open(os.path.join(mdir, "best_ckpt.json")) as fh:
+            best = json.load(fh)
+        post = [ms for warm, _, ms in rec.records[1:] if not warm]
+        step_ms[middle] = statistics.median(post)
+        launches[middle] = total
+        if first_search is None:
+            first_search = searches.calls[0]
+        say(f"[proxy] train {middle}: {n} steps in {run_s:.1f} s, "
+            f"launches {total} (each step as predicted; the eval hook at "
+            f"steps {[r['step'] for r in log if 'eval/ate_rmse_m' in r]} "
+            f"over {windows} windows); t_err_gt "
+            + " -> ".join(f"{r['t_err_gt']:.3f}" for r in train_rows)
+            + f" m; best_ckpt.json step {best['step']} ({best['metric_name']}"
+            f" {best['metric']:.3f}); post-warmup step {step_ms[middle]:.3f} "
+            f"ms (median of {len(post)}, host clock, synchronized); "
+            f"{smi_line}")
+    check_nn_search(torch, nn_search, nn_search_plain, *first_search[1],
+                    **first_search[2])
+    say(f"[proxy] nn_search bit-equal to nn_search_plain (distances and "
+        f"indices) on the pillar run's first association, "
+        f"{tuple(first_search[1][0].shape[:2])} x "
+        f"{first_search[1][2].shape[1]}")
+    # -- 27c. eval --ckpt_step best --refine_loops; report ------------------
+    with open(PROXY_JAX_RESULT) as fh:
+        jax_keys = result_keys(json.load(fh))
+    eval_launches = dict.fromkeys(counted, 0)
+    for middle, _ in steps:
+        reset_counts()
+        with Timed(loop_closure, "icp_align", torch) as icp:
+            res = proxy.main(["eval", "--middle", middle, "--ckpt_step",
+                              "best", "--refine_loops"])
+        torch.cuda.synchronize()
+        total = counts()
+        n_win = res["_meta"]["windows"]
+        want = dict.fromkeys(counted, 0)
+        if middle != "PillarMiddleCov":
+            want["gather_matmul"] = n_win * REFINE_FRAMES * ENCODER_CONVS
+        want["nn_search"] = ICP_ITERS * len(icp.calls)
+        got_keys = result_keys(res)
+        seq = res[f"seq_{tuple(seqs)[-1]:02d}"]
+        say(f"[proxy] eval {middle} --ckpt_step best --refine_loops: "
+            f"{n_win} windows, {n_win / res['_meta']['elapsed_s']:.3f} "
+            f"windows/s (run_eval_refined's clock), {seq['n_loops']} "
+            f"loops, launches {total}; ATE chained / refined / loop closed "
+            + " / ".join(f"{seq[m]['ate_rmse_m']:.3f}"
+                         for m in ("chained", "refined", "loop_closed"))
+            + f" m; {smi_line}")
+        if total != want:
+            fail(f"proxy eval {middle}: launches {total}, predicted {want}")
+        if not finite_numbers(res, np) or got_keys != jax_keys:
+            fail(f"proxy eval {middle}: non-finite numbers, or keys "
+                 f"{got_keys} against the JAX package's {jax_keys}")
+        for k, v in total.items():
+            eval_launches[k] += v
+    rows = proxy.main(["report"])
+    if len(rows) != 3 * len(steps) or not all(
+            v is not None and math.isfinite(v) for r in rows for v in r[1:]):
+        fail(f"proxy report: rows {rows}")
+    shutil.rmtree(PROXY_DIR, ignore_errors=True)
+    say(f"[phase 27] {time.perf_counter() - t_phase:.1f} s")
+    return {"proxy_pillar_train_launches": launches["PillarMiddleCov"],
+            "proxy_sparse_train_launches": launches["SparseMiddleCov"],
+            "proxy_eval_launches": eval_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="a checkout whose kernels are timed "
@@ -5618,6 +5887,10 @@ def main():
     more.update(padded_split_phases(cfg, frames, reset_counts, counts, dev,
                                     smi_line, np, torch))
 
+    # -- 27. the accuracy proxy's script ---------------------------------------
+    more.update(proxy_phases(rb_ops, counted, reset_counts, counts, dev,
+                             smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -5647,7 +5920,10 @@ def main():
                      # (streaming, the train verb, the evaluate verb),
                      # the plan lookups' and plane_apply's streaming and
                      # its split forwards (rank 0's, f32); phase 26's
-                     # split forwards (rank 0's, bf16)
+                     # split forwards (rank 0's, bf16); phase 27's
+                     # proxy training of each middle through the
+                     # script (the eval hook included) and its two
+                     # refined evaluations
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -79,6 +79,11 @@ def _normal_equations(poses: torch.Tensor, graph: PoseGraph):
     return J.T @ J_w, J.T @ r_w
 
 
+# a Gauss-Newton step that multiplies the cost by more than this has
+# diverged (f32 rounding moves a converged cost by a few ulps)
+DIVERGED = 1e3
+
+
 @f32_matmul()
 def optimize_pose_graph(poses_init: torch.Tensor, graph: PoseGraph,
                         iters: int = 10, damping: float = 1e-6):
@@ -88,8 +93,12 @@ def optimize_pose_graph(poses_init: torch.Tensor, graph: PoseGraph,
     poses_init: (N, 7).  Anchored poses keep their initial value (their
     6x6 block is replaced by identity and their residual gradient
     zeroed, the standard gauge fix).  The factorization's status is not
-    read (no host sync): a failed one gives NaN poses, as in JAX.
-    """
+    read (no host sync).  A step that multiplies the cost by more than
+    ``DIVERGED`` or leaves the poses non-finite is not taken (the poses
+    and the cost stay): where H is too ill-conditioned for f32 (relative
+    motions of kilometres, an untrained network's predictions fused)
+    the solve otherwise diverges or returns NaN poses, as JAX's does.
+    Every other step is JAX's."""
     N = poses_init.shape[0]
     dev, dt = poses_init.device, poses_init.dtype
     free = ~graph.anchors.repeat_interleave(6)
@@ -106,8 +115,12 @@ def optimize_pose_graph(poses_init: torch.Tensor, graph: PoseGraph,
         g = torch.where(free, g, 0.0)
         U, _ = torch.linalg.cholesky_ex(H + jitter, upper=True)
         step = -torch.cholesky_solve(g[:, None], U, upper=True)[:, 0]
-        poses = _retract(poses, step.reshape(N, 6))
-        cost = _cost(_residuals(zeros, poses, graph), graph.info)
+        moved = _retract(poses, step.reshape(N, 6))
+        moved_cost = _cost(_residuals(zeros, moved, graph), graph.info)
+        take = torch.isfinite(moved).all() & (moved_cost <=
+                                               DIVERGED * cost)
+        poses = torch.where(take, moved, poses)
+        cost = torch.where(take, moved_cost, cost)
     return poses, cost
 
 

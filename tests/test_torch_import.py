@@ -3,9 +3,12 @@
 (absent on the card's machine) are imported only where a store is
 opened or a plot drawn."""
 import ast
+import glob
 import os
 import subprocess
 import sys
+
+import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -81,6 +84,16 @@ def _imported_roots(path):
 def test_chip_smoke_imports_no_jax():
     roots = _imported_roots(os.path.join(REPO, "chip_smoke.py"))
     assert "rslo_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "flax", "rslo_tpu"}, sorted(roots)
+
+
+@pytest.mark.parametrize("script", sorted(
+    os.path.basename(p)
+    for p in glob.glob(os.path.join(REPO, "scripts", "torch_*.py"))))
+def test_port_scripts_import_no_jax(script):
+    """No import statement of the port's scripts (``scripts/torch_*.py``,
+    the accuracy proxy among them) names jax, flax or the JAX package."""
+    roots = _imported_roots(os.path.join(REPO, "scripts", script))
     assert not roots & {"jax", "flax", "rslo_tpu"}, sorted(roots)
 
 

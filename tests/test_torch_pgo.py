@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from torch_port_helpers import assert_same, tt
 
@@ -157,6 +158,37 @@ def test_consistent_graph_is_a_fixed_point():
     got, cost = ppg.optimize_pose_graph(p0, graph, iters=3)
     np.testing.assert_allclose(got.numpy(), p0.numpy(), atol=1e-5)
     assert float(cost) < 1e-9
+
+
+def test_failed_factorization_keeps_the_last_finite_poses():
+    """A chain of relative motions of ~2 km (an untrained network's
+    predictions, fused): H's rotation blocks are ~1e7 times its
+    translation blocks, too ill-conditioned for f32.  JAX's solver
+    returns NaN poses (then the KITTI metrics' SVD raises); the port's
+    factorization passes but its steps raise the cost by orders of
+    magnitude (kilometres from the optimum in one step).  The port
+    takes no step that multiplies the cost by more than DIVERGED: the
+    consistent chain stays at its initial poses, up to the rounding of
+    km-scale f32 coordinates."""
+    rng = np.random.default_rng(0)
+    n = 31
+    ax = rng.normal(size=(n, 3))
+    ax /= np.linalg.norm(ax, axis=1, keepdims=True)
+    ang = rng.uniform(0, 0.5, (n, 1))
+    odoms = np.concatenate([rng.normal(0, 2000.0, (n, 3)), np.cos(ang / 2),
+                            np.sin(ang / 2) * ax], 1).astype(np.float32)
+    jp0, jg = jpg.chain_graph(jnp.asarray(odoms), 1.0)
+    want, wcost = jpg.optimize_pose_graph(jp0, jg, iters=3)
+    assert not np.isfinite(np.asarray(want)).any()
+    pp0, pg = ppg.chain_graph(tt(odoms), 1.0)
+    zeros = torch.zeros((n + 1, 6))
+    cost0 = float(ppg._cost(ppg._residuals(zeros, pp0, pg), pg.info))
+    got, cost = ppg.optimize_pose_graph(pp0, pg, iters=3)
+    np.testing.assert_allclose(got[:, :3].numpy(), pp0[:, :3].numpy(),
+                               rtol=0, atol=1e-2)
+    np.testing.assert_allclose(got[:, 3:].numpy(), pp0[:, 3:].numpy(),
+                               rtol=0, atol=1e-5)
+    assert float(cost) <= ppg.DIVERGED * cost0
 
 
 def _window_preds(n, seed, dup_noise=True, r2_noise=0.003):
