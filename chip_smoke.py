@@ -164,9 +164,11 @@ small size.  Phases (each one exits non-zero when it fails):
      and profiled on the device; B3 timed at ICP's call (1 x 4096 x
      4096) against its plain version
  21. the data build from a rendered world (``data_build_phases``): the
-     KITTI tree, every frame's store record, 2 steps each on the hier
-     clouds and with the cross-normal VFE, and loop closing on the
-     rendered loop
+     KITTI tree, every frame's store record, the directory store built
+     by the ``create_hdf5`` verb in a process of its own (``store_build``)
+     and held byte for byte against those records, 2 steps each on the
+     hier clouds and with the cross-normal VFE read from it, and loop
+     closing on the rendered loop
  22. every BEV-net option of the schema (``option_phases``), at the
      shipped configs' full width on the rulebook engine: ``options``
      (semi-global BN, normalized convs, SE and spatial attention,
@@ -261,7 +263,7 @@ small size.  Phases (each one exits non-zero when it fails):
      ``scripts/torch_accuracy_proxy.py``'s own stages at a small size:
      ``build`` in one process a sequence (two train curves of 24 frames
      and the val loop of 32, at the full beam grid, the urban speed
-     profile), the npz store where h5py is missing (else h5); ``train``
+     profile), each storing its sequence in the directory store; ``train``
      ``PillarMiddleCov`` 20 steps and ``SparseMiddleCov`` 10, with the
      eval hook every 10: each step's B1, B2 and B3 launches equal the
      prediction, the hook's B1 its windows' and first batch's frames,
@@ -270,6 +272,22 @@ small size.  Phases (each one exits non-zero when it fails):
      --refine_loops`` of each (launches as predicted, every number
      finite, the JAX package's result layout); ``report``; render and
      record ms a frame, train step ms and eval windows/s
+ 28. the KITTI user's path through the directory store
+     (``kitti_store_phases``): ``scripts/torch_kitti_e2e_smoke.py``'s
+     tree at KITTI's point count (2 sequences of 40 scans of 120000
+     points), its store built by the ``create_hdf5`` verb one process a
+     sequence side by side, without h5py; the train verb on
+     ``kitti_train_ours.json`` from it, 4 steps in a process of its own
+     (each step's B1, B2 and B3 launches as predicted, finite losses);
+     ``evaluate`` on ``kitti_eval_ours.json`` from that checkpoint on
+     the store's second sequence (16 windows, 28 B1 launches a window,
+     the JAX package's result keys, finite t_rel, r_rel and ATE); and
+     ``evaluate --refine --refine_loops`` on phase 21's rendered store
+     (42 B1 launches a window, at least one loop, 8 B3 launches an ICP
+     run); build ms and bytes a frame and peak RSS of each build
+     process, the reader's ms a frame (cold map and warm), the loader's
+     ms a batch alone, the step ms and the verb's peak RSS, eval
+     windows/s
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -291,7 +309,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-27 beside them) and the result (JSON); the card's
+of phases 14-28 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -306,6 +324,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -359,6 +378,7 @@ LOOP_POSES, LOOP_CLOUD = 25, 4096
 # normals' radius; the train steps of each new mode; the loop's
 # separation in frames
 WORLD_DIR = os.path.join(REPO, "build", "smoke_world")
+WORLD_STORE = os.path.join(WORLD_DIR, "store")
 WORLD_SEQS = {0: (36, "loop", 8.0), 1: (6, "curve", 8.0)}
 WORLD_BEAMS = (64, 2048)
 CROSS_NORMAL_RADIUS = 1.5
@@ -468,6 +488,10 @@ DENSE_ZERO_GRAD = 1e-5
 DP_DIR = os.path.join(REPO, "build", "smoke_dp")
 DP_RANKS, DP_STEPS, DP_EVAL_WINDOWS = 2, 2, 16
 DP_TIMEOUT_S = 600
+# a bare interpreter that runs its arguments as a child and exits with
+# its code (``run_dp_ranks(own_rss=True)``)
+RSS_LAUNCHER = ("import subprocess, sys; "
+                "sys.exit(subprocess.call(sys.argv[1:]))")
 DP_FUSE = dict(window=64, overlap=16, iters=8)
 DP_FUSE_POSES = 1 + 23 * 48
 DP_BA_POSES, DP_BA_LANDMARKS, DP_BA_ITERS = 6, 4096, 5
@@ -2064,44 +2088,77 @@ def refined_phases(cfg, model_dir, cli, Trainer, counted, reset_counts,
 
 
 
-def memory_reader(store, np):
-    """A class with ``data/hdf5_store.py::SequenceReader``'s contract
-    (``n_frames``, ``frame(i, cross_normals)``) over ``store``: {seq:
-    (records, poses (n, 3, 4), Tr (3, 4))}, each record as
-    ``build_frame_record`` makes it, where the card's machine has no
-    h5py to write and read a store with."""
-    class MemoryReader:
-        def __init__(self, path, seq):
-            self.path, self.seq = path, seq
-            self.records, self.poses, self.Tr = store[seq]
-            self.n_frames = len(self.records)
-
-        def frame(self, i, cross_normals=False):
-            rec = self.records[i]
-            cols = [rec["lidar_points"], rec["lidar_normals"]]
-            if cross_normals and "lidar_cross_normals" in rec:
-                cols.insert(1, rec["lidar_cross_normals"])
-            out = {"points": np.concatenate(cols, axis=1),
-                   "pose": self.poses[i], "Tr": self.Tr}
-            out.update((k, v) for k, v in rec.items()
-                       if k.startswith("hier_"))
-            return out
-    return MemoryReader
+def frame_holds_record(frame, rec, pose, Tr, np):
+    """Whether ``SequenceReader.frame(i, cross_normals=True)`` holds the
+    bytes of ``build_frame_record``'s record ``rec`` (with its cross
+    normals where it has them) and the frame's pose and ``Tr``."""
+    cols = [rec["lidar_points"], rec.get("lidar_cross_normals"),
+            rec["lidar_normals"]]
+    cols = [c for c in cols if c is not None]
+    want = {"points": np.concatenate(cols, axis=1), "pose": pose, "Tr": Tr}
+    want.update((k, v) for k, v in rec.items() if k.startswith("hier_"))
+    return sorted(frame) == sorted(want) and all(
+        frame[k].dtype == want[k].dtype and frame[k].shape == want[k].shape
+        and frame[k].tobytes() == want[k].tobytes() for k in want)
 
 
-def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
+def rss_mib():
+    """This process's peak resident set so far, MiB
+    (``resource.getrusage``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def store_build(spec_path):
+    """One store build of phase 21 or 28, in its own process (no torch):
+    the ``create_hdf5`` verb over the spec's tree and sequences into its
+    directory store, timed; its frames and bytes on disk, the process's
+    peak RSS before the verb and at its end, and whether h5py was loaded
+    go to the spec's ``out``."""
+    sys.path.insert(0, REPO)
+    from rslo_tpu_torch import cli
+    from rslo_tpu_torch.data import normals
+    from rslo_tpu_torch.data.hdf5_store import SequenceReader
+    normals.build()
+    start_mib = rss_mib()
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    argv = ["create_hdf5", "--kitti_root", spec["tree"], "--out",
+            spec["store"], "--sequences",
+            ",".join(str(s) for s in spec["seqs"])]
+    if spec["cross_normal_radius"]:
+        argv += ["--cross_normal_radius", str(spec["cross_normal_radius"])]
+    t0 = time.perf_counter()
+    cli.main(argv)
+    build_s = time.perf_counter() - t0
+    frames = sum(SequenceReader(spec["store"], s).n_frames
+                 for s in spec["seqs"])
+    dirs = [os.path.join(spec["store"], f"{s:02d}") for s in spec["seqs"]]
+    n_bytes = sum(os.path.getsize(os.path.join(d, name))
+                  for d in dirs for name in os.listdir(d))
+    with open(spec["out"], "w") as fh:
+        json.dump({"build_s": build_s, "frames": frames,
+                   "bytes": n_bytes,
+                   "rss_start_mib": start_mib, "rss_mib": rss_mib(),
+                   "h5py": sys.modules.get("h5py") is not None,
+                   "torch": "torch" in sys.modules}, fh)
+
+
+def data_build_phases(cfg, tcfg, rb_ops, Trainer, counted, reset_counts,
                       counts, dev, smi_line, np, torch, seqs=WORLD_SEQS,
                       beams=WORLD_BEAMS, world_kwargs=None):
     """Phase 21: the data build and the input variants it feeds.  The
-    raycast world's KITTI tree (``seqs`` at ``beams``), every frame's
-    store record by ``build_frame_record`` (the native normals), read
-    through ``memory_reader``; 2 steps of ``Trainer.fit`` at ``tcfg``
-    on the hier clouds and 2 with the cross-normal VFE; the point-stack
-    prepare against the mean path at ``cfg``; and ``run_eval_refined``
-    with loop closing on the rendered loop.  ``rb_ops`` are the train
-    frame's convs (``predicted_launches``).  Returns each path's
-    launches by kernel."""
-    from rslo_tpu_torch.data import dataset as dataset_mod
+    raycast world's KITTI tree (``seqs`` at ``beams``) and every frame's
+    store record by ``build_frame_record`` (the native normals), in
+    memory; the directory store WORLD_STORE, built by the ``create_hdf5``
+    verb in a process of its own, byte-equal to those records; from it,
+    2 steps of ``Trainer.fit`` at ``tcfg`` on the hier clouds and 2 with
+    the cross-normal VFE; the point-stack prepare against the mean path
+    at ``cfg``; and ``run_eval_refined`` with loop closing on the
+    rendered loop.  ``rb_ops`` are the train frame's convs
+    (``predicted_launches``).  The tree and the store stay for phase 28
+    (which deletes WORLD_DIR).  Returns each path's launches by
+    kernel."""
     from rslo_tpu_torch.data import normals
     from rslo_tpu_torch.data.dataset import DATASETS, KittiWindowDataset
     from rslo_tpu_torch.data.hdf5_store import (SequenceReader,
@@ -2133,7 +2190,7 @@ def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
         f"{os.path.relpath(normals.library_path(), REPO)} in "
         f"{time.perf_counter() - t0:.2f} s (or found built)")
     sizes = tcfg.data.downsample_voxel_sizes[:1]
-    store, n_points, record_ms = {}, [], []
+    recorded, n_points, record_ms = {}, [], []
     with Timed(normals, "estimate_normals", torch) as est:
         for seq in seqs:
             velo, seq_dir, pose_file = sequence_paths(tree, seq)
@@ -2145,10 +2202,10 @@ def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
                     pts, sizes, cross_normal_radius=CROSS_NORMAL_RADIUS))
                 record_ms.append((time.perf_counter() - t0) * 1e3)
                 n_points.append(len(pts))
-            store[seq] = (records, read_poses(pose_file),
-                          read_calib(seq_dir)["Tr"])
+            recorded[seq] = (records, read_poses(pose_file),
+                             read_calib(seq_dir)["Tr"])
     hier_key = f"hier_lidar_points_normals_{sizes[0]}"
-    n_hier = [len(r[hier_key]) for recs, _, _ in store.values()
+    n_hier = [len(r[hier_key]) for recs, _, _ in recorded.values()
               for r in recs]
     spec = ", ".join(f"seq {s:02d}: {n} {pat} at {v} m/s"
                      for s, (n, pat, v) in seqs.items())
@@ -2161,40 +2218,41 @@ def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
         f"calls), hier clouds at {sizes[0]} m {statistics.mean(n_hier):.0f} "
         f"points, build_frame_record {statistics.mean(record_ms):.1f} ms a "
         f"frame (host); {smi_line}")
-    bad = [k for recs, _, _ in store.values() for r in recs
+    bad = [k for recs, _, _ in recorded.values() for r in recs
            for k, v in r.items() if not np.isfinite(v).all()]
     if bad or min(n_points) < 1000:
         fail(f"data build: non-finite records {bad[:3]} or empty scans")
-    Reader = memory_reader(store, np)
-    if importlib.util.find_spec("h5py") is None:
-        say("[data] h5py is not installed: the create_hdf5 verb's file "
-            "write is not driven here (tests/test_torch_store.py holds it "
-            "byte-equal to the JAX package's on the CPU); the records "
-            "above are the verb's, by its own build_frame_record")
-    else:
-        h5 = os.path.join(WORLD_DIR, "all.h5")
-        cli.main(["create_hdf5", "--kitti_root", tree, "--out", h5,
-                  "--sequences", ",".join(str(s) for s in seqs),
-                  "--cross_normal_radius", str(CROSS_NORMAL_RADIUS)])
-        for seq in seqs:
-            got, want = SequenceReader(h5, seq), Reader(None, seq)
-            for i in range(want.n_frames):
-                for cross in (False, True):
-                    a, b = got.frame(i, cross), want.frame(i, cross)
-                    if sorted(a) != sorted(b) or not all(
-                            np.array_equal(a[k], b[k]) for k in a):
-                        fail(f"create_hdf5: seq {seq} frame {i} differs "
-                             f"from its in-memory record")
-        say("[data] the create_hdf5 verb's store equals the in-memory "
-            "records, frame by frame")
+    # the create_hdf5 verb's directory store, in a process of its own
+    (built,) = run_dp_ranks([{
+        "rank": "store", "tree": tree, "store": WORLD_STORE,
+        "seqs": list(seqs), "cross_normal_radius": CROSS_NORMAL_RADIUS,
+        "out": os.path.join(WORLD_DIR, "store_build.json")}], None,
+        entry="store_build", phase="phase 21", own_rss=True)
+    for seq, (records, poses, Tr) in recorded.items():
+        reader = SequenceReader(WORLD_STORE, seq)
+        if reader.n_frames != len(records):
+            fail(f"create_hdf5: seq {seq} holds {reader.n_frames} frames "
+                 f"for {len(records)} records")
+        for i, rec in enumerate(records):
+            if not frame_holds_record(reader.frame(i, cross_normals=True),
+                                      rec, poses[i], Tr, np):
+                fail(f"create_hdf5: seq {seq} frame {i} of the directory "
+                     f"store differs from its in-memory record")
+    say(f"[data] the create_hdf5 verb's directory store "
+        f"({os.path.relpath(WORLD_STORE, REPO)}, no h5py: "
+        f"{not built['h5py']}) holds every in-memory record byte for "
+        f"byte: {built['frames']} frames in {built['build_s']:.2f} s, "
+        f"{built['build_s'] * 1e3 / built['frames']:.1f} ms a frame, "
+        f"{built['bytes'] / built['frames'] / 2 ** 20:.3f} MiB a frame, "
+        f"peak RSS {built['rss_mib']:.1f} MiB ({built['rss_start_mib']:.1f}"
+        f" before the verb; host, one process); "
+        f"{smi_line}")
+    if built["h5py"]:
+        fail("create_hdf5 into a directory store loaded h5py")
 
     def windows(cls, data_cfg, *args, **kw):
-        saved = dataset_mod.SequenceReader
-        dataset_mod.SequenceReader = Reader
-        try:
-            return cls(data_cfg, *args, **kw)
-        finally:
-            dataset_mod.SequenceReader = saved
+        return cls(dataclasses.replace(data_cfg, root=WORLD_STORE), *args,
+                   **kw)
 
     # -- 21b. training on the hier clouds and with the cross-normal VFE ------
     curve = [s for s, (_, pat, _) in seqs.items() if pat == "curve"]
@@ -2309,8 +2367,8 @@ def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
     # -- 21c. the point stacks against the mean path, at the eval config ----
     loop = [s for s, (_, pat, _) in seqs.items() if pat != "curve"][0]
     vcfg = voxelizer_config(cfg)
-    scan = torch.as_tensor(Reader(None, loop).frame(0)["points"],
-                           device=dev)[None]
+    scan = torch.as_tensor(SequenceReader(WORLD_STORE, loop).frame(0)[
+        "points"], device=dev)[None]
     smask = torch.ones(scan.shape[:2], dtype=torch.bool, device=dev)
     vfe = VFES["SimpleVoxelXYZINormal"]
 
@@ -2390,7 +2448,6 @@ def data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted, reset_counts,
         f"{', '.join(f'{m:.3f}' for m in loops.ms())} ms (ICP "
         f"{statistics.median(icp.ms()):.3f} ms a candidate); the whole run "
         f"{run_s:.2f} s; {smi_line}")
-    shutil.rmtree(WORLD_DIR, ignore_errors=True)
     return {"hier_train_launches": launches["hier"],
             "crossnorm_train_launches": launches["crossnorm"],
             "world_loop_launches": total}
@@ -3016,20 +3073,43 @@ def dp_rank(spec_path):
     torch.save(out, spec["out"])
 
 
-def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23"):
-    """Start one process a spec (``entry``: ``dp_rank`` or
-    ``split_rank``), wait for all (DP_TIMEOUT_S) and return their
-    results; a rank that fails or hangs fails the run, and every rank is
-    stopped first."""
+def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23",
+                 own_rss=False):
+    """Start one process a spec (``entry``: ``dp_rank``, ``split_rank``,
+    ``proxy_build``, ``store_build`` or ``kitti_train``), wait for all
+    (DP_TIMEOUT_S) and return their results; a rank that fails or hangs
+    fails the run, and every rank is stopped first.  Specs and results
+    go through ``torch.save`` files, or JSON where ``torch`` is None (a
+    process that needs no torch).  ``own_rss``: each process is started
+    by a bare interpreter of its own (``RSS_LAUNCHER``), so that its
+    ``ru_maxrss`` is its own peak and not this script's (Linux carries
+    the peak of the process that calls ``exec`` into the new program's
+    ``ru_maxrss``)."""
+    def save(obj, path):
+        if torch is None:
+            with open(path, "w") as fh:
+                json.dump(obj, fh)
+        else:
+            torch.save(obj, path)
+
+    def load(path):
+        if torch is None:
+            with open(path) as fh:
+                return json.load(fh)
+        return torch.load(path, weights_only=False)
+
     procs = []
     for spec in specs:
         path = spec["out"] + ".spec"
-        torch.save(spec, path)
+        save(spec, path)
         code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
                 "chip_smoke.%s(%r)" % (REPO, entry, path))
+        argv = [sys.executable, "-c", code]
+        if own_rss:
+            argv = [sys.executable, "-c", RSS_LAUNCHER] + argv
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", code], cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
+            argv, cwd=REPO, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, start_new_session=own_rss))
     logs = []
     try:
         for p in procs:
@@ -3039,13 +3119,16 @@ def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23"):
     finally:
         for p in procs:
             if p.poll() is None:
-                p.kill()
+                if own_rss:             # the launcher and its child
+                    os.killpg(p.pid, signal.SIGKILL)
+                else:
+                    p.kill()
                 p.wait()
     for p, log, spec in zip(procs, logs, specs):
         if p.returncode != 0:
             fail(f"{phase}: rank {spec['rank']} exited {p.returncode}:\n"
                  f"{log[-4000:]}")
-    return [torch.load(s["out"], weights_only=False) for s in specs]
+    return [load(s["out"]) for s in specs]
 
 
 def data_parallel_phases(tcfg, batches, history, rb_ops, cli, Trainer,
@@ -4435,7 +4518,7 @@ def load_proxy(root, seqs):
     spec.loader.exec_module(proxy)
     proxy.ROOT = proxy.Path(root)
     proxy.TREE = proxy.ROOT / "kitti_tree"
-    proxy.H5 = proxy.ROOT / "proxy.h5"
+    proxy.STORE = proxy.ROOT / "proxy_store"
     proxy.SEQS = dict(seqs)
     proxy.TRAIN_SEQS, proxy.VAL_SEQS = tuple(seqs)[:-1], tuple(seqs)[-1:]
     return proxy
@@ -4444,25 +4527,27 @@ def load_proxy(root, seqs):
 def proxy_build(spec_path):
     """One build process of phase 27, started after the kernels' build:
     ``build --seqs S`` of the proxy's script for the spec's sequence (the
-    render, and the npz store's records where h5py is missing), timed;
-    the result goes to the spec's ``out``."""
+    render, then the ``create_hdf5`` verb into the directory store),
+    timed; the result goes to the spec's ``out``."""
     import functools
     import torch
+    from rslo_tpu_torch import cli
     from rslo_tpu_torch.utils import world
     spec = torch.load(spec_path, weights_only=False)
     world.write_kitti_tree = functools.partial(
         world.write_kitti_tree, n_beams=spec["beams"][0],
         n_azimuth=spec["beams"][1], world_kwargs=spec["world_kwargs"])
     proxy = load_proxy(spec["root"], spec["seqs"])
-    write = proxy.write_npz_store
+    main = cli.main
     store_s = []
 
-    def timed_write(*a, **kw):
+    def timed_main(argv):
         t0 = time.perf_counter()
-        write(*a, **kw)
+        out = main(argv)
         store_s.append(time.perf_counter() - t0)
+        return out
 
-    proxy.write_npz_store = timed_write
+    cli.main = timed_main
     t0 = time.perf_counter()
     proxy.main(["build", "--seqs", str(spec["seq"]), "--profile",
                 PROXY_PROFILE])
@@ -4495,8 +4580,8 @@ def proxy_phases(rb_ops, counted, reset_counts, counts, dev, smi_line, np,
     """Phase 27: the accuracy proxy's script (``scripts/
     torch_accuracy_proxy.py``) through its own stages: ``build`` one
     process a sequence of ``seqs`` at ``beams`` (``world_kwargs`` shrinks
-    the world for a rehearsal), then the npz store (h5 where h5py is
-    installed); ``train`` each middle of ``steps`` for its steps with
+    the world for a rehearsal), each storing its sequence in the
+    directory store; ``train`` each middle of ``steps`` for its steps with
     the eval hook every PROXY_EVAL_EVERY (each step's launches against
     the prediction, the hook's against its windows); ``eval --ckpt_step
     best --refine_loops`` of each; ``report``.  ``cfg_hook`` wraps the
@@ -4522,27 +4607,21 @@ def proxy_phases(rb_ops, counted, reset_counts, counts, dev, smi_line, np,
     proxy = load_proxy(PROXY_DIR, seqs)
     if cfg_hook is not None:
         proxy.base_cfg = cfg_hook(proxy.base_cfg)
-    kind = proxy.store_kind()
     store_s = sum(b["store_s"] for b in built)
-    if kind == "h5":
-        t0 = time.perf_counter()
-        proxy.main(["build", "--h5_only", "--profile", PROXY_PROFILE])
-        store_s = time.perf_counter() - t0
     n_frames = sum(n for n, _, _ in seqs.values())
     render_ms = sum(b["total_s"] - b["store_s"] for b in built) * 1e3 / \
         n_frames
     record_ms = store_s * 1e3 / n_frames
-    store = sorted(p.name for p in proxy.ROOT.glob(
-        "proxy_*.npz" if kind == "npz" else "proxy.h5"))
+    store = sorted(os.listdir(proxy.STORE))
     say(f"[proxy] build: {len(seqs)} processes ("
         + ", ".join(f"seq {s:02d}: {n} {pat} at {v} m/s"
                     for s, (n, pat, v) in seqs.items())
         + f", profile {PROXY_PROFILE}, {beams[0]} x {beams[1]} beams) in "
         f"{build_s:.1f} s; render {render_ms:.1f} ms a frame, records "
         f"{record_ms:.1f} ms a frame (host, the processes side by side); "
-        f"the {kind} store {store}; {smi_line}")
-    if len(store) != (len(seqs) if kind == "npz" else 1):
-        fail(f"proxy build: the {kind} store holds {store}")
+        f"the directory store holds {store}; {smi_line}")
+    if store != [f"{s:02d}" for s in seqs]:
+        fail(f"proxy build: the directory store holds {store}")
     # -- 27b. train each middle through the script -------------------------
     launches, step_ms, first_search = {}, {}, None
     for middle, n in steps:
@@ -4656,6 +4735,317 @@ def proxy_phases(rb_ops, counted, reset_counts, counts, dev, smi_line, np,
     return {"proxy_pillar_train_launches": launches["PillarMiddleCov"],
             "proxy_sparse_train_launches": launches["SparseMiddleCov"],
             "proxy_eval_launches": eval_launches}
+
+
+# -- phase 28: the KITTI user's path through the directory store ------------
+
+# scripts/torch_kitti_e2e_smoke.py's KITTI-shaped tree at KITTI's point
+# count: KITTI_SEQS of KITTI_FRAMES scans of KITTI_POINTS points, its
+# directory store built one process a sequence; the train verb on the
+# shipped config from it (KITTI_STEPS), evaluate on its second sequence
+# (KITTI_WINDOWS) and the refined evaluate with loop closing on phase
+# 21's rendered store; the loader timed alone over LOADER_BATCHES
+KITTI_DIR = os.path.join(REPO, "build", "smoke_kitti")
+KITTI_SCRIPT = os.path.join(REPO, "scripts", "torch_kitti_e2e_smoke.py")
+KITTI_POINTS, KITTI_FRAMES, KITTI_SEQS = 120000, 40, (0, 1)
+KITTI_STEPS, KITTI_WINDOWS = 4, 16
+LOADER_BATCHES = 8
+
+
+def load_twin():
+    """``scripts/torch_kitti_e2e_smoke.py`` as a module."""
+    spec = importlib.util.spec_from_file_location("torch_kitti_e2e_smoke",
+                                                  KITTI_SCRIPT)
+    twin = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(twin)
+    return twin
+
+
+def kitti_train(spec_path):
+    """Phase 28b in its own process, so that its peak RSS is the train
+    verb's: ``cli.main(["train", ...])`` on the spec's config with every
+    step recorded (``StepRecorder``; the kernels are the parent's build,
+    never compiled here); the records, the counts, the process's peak
+    RSS and whether h5py was loaded go to the spec's ``out``."""
+    import torch
+    sys.path.insert(0, REPO)
+    from rslo_tpu_torch import cli
+    from rslo_tpu_torch.ops import _build
+    from rslo_tpu_torch.train import loop as train_loop
+    spec = torch.load(spec_path, weights_only=False)
+    if spec["device"] != "cuda":        # a rehearsal of this phase on the CPU
+        torch.cuda.synchronize = lambda *a: None
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counted = rank_kernels(_build, "train")
+
+    def counts():
+        return {k: fn.launches for k, fn in counted.items()}
+
+    for fn in counted.values():
+        fn.launches = 0
+    start_mib = rss_mib()
+    t0 = time.perf_counter()
+    with StepRecorder(train_loop, counts, torch) as rec:
+        state = cli.main(["train", "--config", spec["config"], "--model_dir",
+                          spec["model_dir"], "--steps", str(spec["steps"]),
+                          "--device", spec["device"]])
+    torch.cuda.synchronize()
+    torch.save({"records": rec.records, "total": counts(),
+                "step": state.step, "verb_s": time.perf_counter() - t0,
+                "points": tuple(rec.batch["points"].shape),
+                "rss_start_mib": start_mib, "rss_mib": rss_mib(),
+                "h5py": sys.modules.get("h5py") is not None}, spec["out"])
+
+
+def kitti_store_phases(rb_ops, counted, reset_counts, counts, dev, smi_line,
+                       np, torch, n_points=KITTI_POINTS,
+                       n_frames=KITTI_FRAMES, cfg_hook=None):
+    """Phase 28: the KITTI user's path on the card, through the
+    directory store and the CLI.  (a) ``scripts/torch_kitti_e2e_smoke.
+    py``'s tree (``n_points`` a scan, ``n_frames`` a sequence), its store
+    built by the ``create_hdf5`` verb one process a sequence side by
+    side (``store_build``), the first and last frame of each held
+    byte for byte against ``build_frame_record``; phase 21 built the
+    rendered tree's store.  (e) the reader, cold map and warm, and the
+    train data path alone.  (b) the train verb on TRAIN_CONFIG from the
+    store (``kitti_train``, in its own process), each step's launches
+    as predicted; (c) ``evaluate`` on CONFIG from its checkpoint on the
+    store's second sequence; (d) ``evaluate --refine --refine_loops`` on
+    phase 21's rendered loop.  ``cfg_hook`` shrinks the configs for a
+    rehearsal.  Deletes KITTI_DIR and WORLD_DIR.  Returns each path's
+    launches by kernel."""
+    from rslo_tpu_torch import cli
+    from rslo_tpu_torch.config.schema import PipelineCfg
+    from rslo_tpu_torch.data import hdf5_store
+    from rslo_tpu_torch.data.dataset import KittiWindowDataset
+    from rslo_tpu_torch.data.hdf5_store import (SequenceReader,
+                                                build_frame_record)
+    from rslo_tpu_torch.data.kitti_io import (list_frames, read_calib,
+                                              read_poses, read_velodyne,
+                                              sequence_paths)
+    from rslo_tpu_torch.data.loader import DataLoader
+    from rslo_tpu_torch.pgo import loop_closure
+    t_phase = time.perf_counter()
+    shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    os.makedirs(KITTI_DIR)
+    hook = cfg_hook or (lambda c: c)
+    # -- 28a. the KITTI-shaped tree; its store, one process a sequence ----
+    t0 = time.perf_counter()
+    tree = str(load_twin().build_tree(os.path.join(KITTI_DIR, "tree"),
+                                      n_points, n_frames, KITTI_SEQS))
+    tree_s = time.perf_counter() - t0
+    store = os.path.join(KITTI_DIR, "store")
+    t0 = time.perf_counter()
+    built = run_dp_ranks([{
+        "rank": s, "tree": tree, "store": store, "seqs": [s],
+        "cross_normal_radius": None,
+        "out": os.path.join(KITTI_DIR, f"build_{s:02d}.json")}
+        for s in KITTI_SEQS], None, entry="store_build", phase="phase 28",
+        own_rss=True)
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(WORLD_DIR, "store_build.json")) as fh:
+        world = json.load(fh)
+    for s in KITTI_SEQS:
+        reader = SequenceReader(store, s)
+        velo, seq_dir, pose_file = sequence_paths(tree, s)
+        frames, poses = list_frames(velo), read_poses(pose_file)
+        Tr = read_calib(seq_dir)["Tr"]
+        if reader.n_frames != n_frames or len(frames) != n_frames:
+            fail(f"kitti store: seq {s} holds {reader.n_frames} frames")
+        for i in (0, n_frames - 1):
+            rec = build_frame_record(read_velodyne(frames[i]))
+            if not frame_holds_record(reader.frame(i, cross_normals=True),
+                                      rec, poses[i], Tr, np):
+                fail(f"kitti store: seq {s} frame {i} differs from "
+                     f"build_frame_record of its scan")
+    say(f"[kitti] scripts/torch_kitti_e2e_smoke.py's tree: {len(KITTI_SEQS)}"
+        f" sequences of {n_frames} scans of {n_points} points in "
+        f"{tree_s:.2f} s; its directory store by the create_hdf5 verb, "
+        f"{len(KITTI_SEQS)} processes side by side, in {build_s:.2f} s: "
+        + "; ".join(
+            f"seq {s:02d} {b['frames']} frames, "
+            f"{b['build_s'] * 1e3 / b['frames']:.1f} ms a frame, "
+            f"{b['bytes'] / b['frames'] / 2 ** 20:.3f} MiB a frame, peak "
+            f"RSS {b['rss_mib']:.1f} MiB ({b['rss_start_mib']:.1f} before "
+            f"the verb), h5py loaded {b['h5py']}, torch "
+            f"loaded {b['torch']}" for s, b in zip(KITTI_SEQS, built))
+        + f"; the first and last frame of each byte-equal to "
+        f"build_frame_record of its scan; the rendered tree's store (phase "
+        f"21, one process): {world['build_s'] * 1e3 / world['frames']:.1f}"
+        f" ms a frame, {world['bytes'] / world['frames'] / 2 ** 20:.3f} MiB"
+        f" a frame, peak RSS {world['rss_mib']:.1f} MiB; {smi_line}")
+    if any(b["h5py"] for b in built + [world]):
+        fail("a directory store's build loaded h5py")
+    # -- 28e. the reader (random order) and the train data path, alone ----
+    hdf5_store._MAPS.clear()
+    order = np.random.default_rng(SEED).permutation(n_frames)
+    t0 = time.perf_counter()
+    reader = SequenceReader(store, KITTI_SEQS[0])
+    map_ms = (time.perf_counter() - t0) * 1e3
+    read_ms = {}
+    for label in ("cold map", "warm"):
+        read_ms[label] = []
+        for i in order:
+            t0 = time.perf_counter()
+            reader.frame(int(i))
+            read_ms[label].append((time.perf_counter() - t0) * 1e3)
+    with open(TRAIN_CONFIG) as fh:
+        tcfg = PipelineCfg.from_json(fh.read())
+    tcfg = hook(tcfg.replace(
+        data=dataclasses.replace(tcfg.data, root=store,
+                                 train_sequences=KITTI_SEQS[:1],
+                                 val_sequences=KITTI_SEQS[1:]),
+        loss=dataclasses.replace(tcfg.loss,
+                                 warmup_steps=SMOKE_WARMUP_STEPS),
+        train=dataclasses.replace(tcfg.train, display_step=1)))
+    dataset = KittiWindowDataset(tcfg.data, "train")
+    loader = DataLoader(dataset, tcfg.data, 1, LOADER_BATCHES, train=True,
+                        seed=tcfg.train.seed)
+    batch_ms, shapes = [], set()
+    batches = iter(loader)          # the sampler never ends: take a few
+    t0 = time.perf_counter()
+    try:
+        for _ in range(LOADER_BATCHES):
+            b = next(batches)
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            shapes.add(tuple(b["points"].shape))
+            t0 = time.perf_counter()
+    finally:
+        loader.close()
+    say(f"[time] kitti store reader, seq {KITTI_SEQS[0]:02d}, "
+        f"{n_frames} frames in random order: map {map_ms:.3f} ms; "
+        + "; ".join(f"{k} {statistics.mean(v):.3f} ms a frame (median "
+                    f"{statistics.median(v):.3f})"
+                    for k, v in read_ms.items())
+        + f" (the page cache warm: the store was just written); the train "
+        f"data path alone (DataLoader, {tcfg.data.num_workers} threads, "
+        f"{len(dataset)} windows of {tcfg.data.seq_length} frames): first "
+        f"batch {batch_ms[0]:.1f} ms, then {statistics.median(batch_ms[1:]):.1f}"
+        f" ms a batch (median of {len(batch_ms) - 1}), points "
+        f"{sorted(shapes)}; {smi_line}")
+    # -- 28b. the train verb from the store, in its own process -----------
+    train_path = os.path.join(KITTI_DIR, "train.json")
+    with open(train_path, "w") as fh:
+        fh.write(tcfg.to_json())
+    run_dir = os.path.join(KITTI_DIR, "run")
+    (tr,) = run_dp_ranks([{
+        "rank": "train", "config": train_path, "model_dir": run_dir,
+        "steps": KITTI_STEPS, "device": dev.type,
+        "out": os.path.join(KITTI_DIR, "train.pt")}], torch,
+        entry="kitti_train", phase="phase 28", own_rss=True)
+    if tr["step"] != KITTI_STEPS or len(tr["records"]) != KITTI_STEPS:
+        fail(f"kitti train verb: ended at {tr['step']}, "
+             f"{len(tr['records'])} steps recorded")
+    for k, (warm, got, ms) in enumerate(tr["records"]):
+        want = predicted_launches(rb_ops, tcfg, warm)
+        say(f"[kitti train] step {k} ({'warmup' if warm else 'post-warmup'})"
+            f": {ms:.3f} ms (host clock, synchronized), launches {got}")
+        if warm != (k <= tcfg.loss.warmup_steps) or got != want:
+            fail(f"kitti train verb step {k}: launches {got}, predicted "
+                 f"{want}")
+    if {k: sum(c[k] for _, c, _ in tr["records"]) for k in counted} != \
+            tr["total"]:
+        fail(f"kitti train verb: launches outside the steps: {tr['total']}")
+    with open(os.path.join(run_dir, "log.json.lst")) as fh:
+        rows = [r for r in map(json.loads, fh) if "loss" in r]
+    if len(rows) != KITTI_STEPS or not finite_numbers(rows, np) or \
+            tr["h5py"]:
+        fail(f"kitti train verb: logged steps {rows}, h5py {tr['h5py']}")
+    step_ms = statistics.median(ms for warm, _, ms in tr["records"]
+                                if not warm)
+    say(f"[kitti train] {os.path.basename(TRAIN_CONFIG)} on the store "
+        f"(train seq {KITTI_SEQS[0]:02d}, {KITTI_STEPS} steps, warmup "
+        f"steps {tcfg.loss.warmup_steps}): batch points {tr['points']}, "
+        f"losses " + ", ".join(f"{r['loss']:.5f}" for r in rows)
+        + f"; post-warmup step {step_ms:.3f} ms (median, host clock); the "
+        f"verb {tr['verb_s']:.2f} s in its own process, peak RSS "
+        f"{tr['rss_mib']:.1f} MiB ({tr['rss_start_mib']:.1f} before the "
+        f"verb); {smi_line}")
+    # -- 28c. evaluate from its checkpoint on the store's second sequence --
+    with open(CONFIG) as fh:
+        ecfg = PipelineCfg.from_json(fh.read())
+    ecfg = hook(ecfg.replace(data=dataclasses.replace(
+        ecfg.data, root=store, val_sequences=KITTI_SEQS[1:])))
+    eval_path = os.path.join(KITTI_DIR, "eval.json")
+    with open(eval_path, "w") as fh:
+        fh.write(ecfg.to_json())
+    reset_counts()
+    res = cli.main(["evaluate", "--config", eval_path, "--model_dir",
+                    run_dir, "--max_windows", str(KITTI_WINDOWS)])
+    torch.cuda.synchronize()
+    eval_launches = counts()
+    with open(os.path.join(run_dir, "eval_results.json")) as fh:
+        saved = json.load(fh)
+    seq_key = f"seq_{KITTI_SEQS[1]:02d}"
+    want_keys = {{"seq_00": seq_key}.get(k, k): v
+                 for k, v in EVAL_KEYS.items()}
+    want = dict.fromkeys(counted, 0)
+    want["gather_matmul"] = KITTI_WINDOWS * 2 * ENCODER_CONVS
+    metrics = {k: saved["avg"][k] for k in ("t_rel_pct", "r_rel_deg_per_100m",
+                                            "ate_rmse_m")}
+    say(f"[kitti eval] {os.path.basename(CONFIG)} on {seq_key} of the store:"
+        f" {saved['_meta']['windows']} windows, "
+        f"{saved['_meta']['frames_per_s']:.3f} windows/s (run_eval's "
+        f"clock), launches {eval_launches}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        + f"; {smi_line}")
+    if {k: list(v) for k, v in saved.items()} != want_keys or \
+            saved["_meta"]["windows"] != KITTI_WINDOWS or \
+            res["_meta"]["windows"] != KITTI_WINDOWS:
+        fail(f"kitti evaluate: eval_results.json keys "
+             f"{ {k: list(v) for k, v in saved.items()} } or windows, "
+             f"expected {want_keys}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"kitti evaluate: non-finite {metrics}")
+    if eval_launches != want:
+        fail(f"kitti evaluate: launches {eval_launches}, expected {want}")
+    # -- 28d. the refined evaluate with loop closing on the rendered loop --
+    loop = [s for s, (_, pat, _) in WORLD_SEQS.items() if pat == "loop"][0]
+    rcfg = ecfg.replace(data=dataclasses.replace(
+        ecfg.data, root=WORLD_STORE, val_sequences=(loop,)))
+    refine_path = os.path.join(KITTI_DIR, "refine.json")
+    with open(refine_path, "w") as fh:
+        fh.write(rcfg.to_json())
+    reset_counts()
+    with Timed(loop_closure, "icp_align", torch) as icp:
+        rres = cli.main(["evaluate", "--config", refine_path, "--model_dir",
+                         run_dir, "--refine", "--refine_loops",
+                         "--loop_min_separation", str(LOOP_SEPARATION)])
+    torch.cuda.synchronize()
+    refined_launches = counts()
+    n_win = rres["_meta"]["windows"]
+    seq = rres[f"seq_{loop:02d}"]
+    want = dict.fromkeys(counted, 0)
+    want["gather_matmul"] = n_win * REFINE_FRAMES * ENCODER_CONVS
+    want["nn_search"] = ICP_ITERS * len(icp.calls)
+    metrics = {f"{m}/{k}": seq[m][k] for m in ("chained", "refined",
+                                               "loop_closed")
+               for k in ("t_rel_pct", "ate_rmse_m")}
+    say(f"[kitti refine] evaluate --refine --refine_loops on the rendered "
+        f"store's seq {loop:02d}: {n_win} windows, "
+        f"{n_win / rres['_meta']['elapsed_s']:.3f} windows/s "
+        f"(run_eval_refined's clock), {seq['n_loops']} loops, "
+        f"{len(icp.calls)} ICP runs, launches {refined_launches}; "
+        + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items())
+        + f"; {smi_line}")
+    if not 1 <= len(icp.calls) == seq["n_loops"]:
+        fail(f"kitti refine: {seq['n_loops']} loops, {len(icp.calls)} ICP "
+             f"runs (at least 1)")
+    if refined_launches != want:
+        fail(f"kitti refine: launches {refined_launches}, expected {want}")
+    if not all(math.isfinite(v) for v in metrics.values()) or not all(
+            k in rres["_meta"] for k in REFINED_KEYS["_meta"]) or not all(
+            k in seq for k in REFINED_KEYS["seq_00"] + LOOP_KEYS):
+        fail(f"kitti refine: non-finite {metrics} or keys {list(seq)}")
+    if sys.modules.get("h5py") is not None:
+        fail("phase 28 loaded h5py")
+    shutil.rmtree(KITTI_DIR, ignore_errors=True)
+    shutil.rmtree(WORLD_DIR, ignore_errors=True)
+    say(f"[phase 28] {time.perf_counter() - t_phase:.1f} s")
+    return {"kitti_train_launches": tr["total"],
+            "kitti_eval_launches": eval_launches,
+            "kitti_refined_launches": refined_launches}
 
 
 def main():
@@ -5847,7 +6237,7 @@ def main():
     shutil.rmtree(TRAIN_DIR, ignore_errors=True)
 
     # -- 21. the data build, its input variants and true loops -------------
-    more.update(data_build_phases(cfg, tcfg, rb_ops, cli, Trainer, counted,
+    more.update(data_build_phases(cfg, tcfg, rb_ops, Trainer, counted,
                                   reset_counts, counts, dev, smi_line, np,
                                   torch))
 
@@ -5891,6 +6281,10 @@ def main():
     more.update(proxy_phases(rb_ops, counted, reset_counts, counts, dev,
                              smi_line, np, torch))
 
+    # -- 28. the KITTI user's path through the directory store --------------
+    more.update(kitti_store_phases(rb_ops, counted, reset_counts, counts,
+                                   dev, smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -5923,7 +6317,9 @@ def main():
                      # split forwards (rank 0's, bf16); phase 27's
                      # proxy training of each middle through the
                      # script (the eval hook included) and its two
-                     # refined evaluations
+                     # refined evaluations; phase 28's train verb,
+                     # evaluate verb and refined evaluate verb from
+                     # the directory stores
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -111,16 +111,31 @@ def estimate_normals_plain(xyz: np.ndarray, radius: float = 0.6,
 def voxel_downsample(points: np.ndarray, voxel: float) -> np.ndarray:
     """Voxel-grid mean of (N, F) points (xyz in columns 0:3): one row
     per occupied cell, in lexicographic (x, y, z) cell order, every
-    column averaged in float64 and returned as float32."""
-    keys = np.floor(points[:, :3] / voxel).astype(np.int64)
+    column averaged in float64 and returned as float32.  Each cell's
+    rows are summed in their input order (the stable sort keeps it), one
+    column at a time, so the sums equal a sum over the sorted points;
+    the temporaries stay at a few times the input's size."""
+    keys = points[:, :3] / voxel
+    np.floor(keys, out=keys)
+    keys = keys.astype(np.int64)
     order = np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))
-    k = keys[order]
-    p = points[order]
-    head = np.ones(len(k), bool)
-    head[1:] = np.any(k[1:] != k[:-1], axis=1)
-    group = np.cumsum(head) - 1
-    n_groups = group[-1] + 1 if len(group) else 0
+    head = np.zeros(len(order), bool)
+    head[:1] = True
+    for c in range(3):
+        kc = keys[order, c]
+        head[1:] |= kc[1:] != kc[:-1]
+    del keys, kc
+    group = np.cumsum(head)
+    group -= 1
+    del head
+    n_groups = int(group[-1]) + 1 if len(group) else 0
+    cell = np.empty_like(group)
+    cell[order] = group                  # each input row's cell
+    del order, group
     sums = np.zeros((n_groups, points.shape[1]), np.float64)
-    np.add.at(sums, group, p)
-    counts = np.bincount(group, minlength=n_groups)[:, None]
-    return (sums / np.maximum(counts, 1)).astype(np.float32)
+    for c in range(points.shape[1]):
+        np.add.at(sums[:, c], cell, points[:, c])
+    counts = np.bincount(cell, minlength=n_groups)[:, None]
+    del cell
+    sums /= np.maximum(counts, 1)
+    return sums.astype(np.float32)

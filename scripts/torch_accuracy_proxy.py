@@ -15,14 +15,11 @@ are rendered from the SAME world, so the val number measures
 generalization across trajectory shape, viewpoints, occlusion and
 motion, not across scene content or sensor domain.
 
-The store: where h5py is installed, ``build`` writes ``proxy.h5`` with
-the ``create_hdf5`` verb.  Where it is not, ``build`` writes one
-``proxy_XX.npz`` a sequence beside where ``proxy.h5`` would be (every
-frame's ``build_frame_record``, the poses and ``Tr``), and ``train``
-and ``eval`` read it through ``NpzSequenceReader``, which keeps
-``SequenceReader``'s contract.  ``build --seqs S`` renders (and, for
-the npz store, builds) only those sequences, so one process a sequence
-can run in parallel.
+The store is the package's directory store (``create_hdf5`` with an
+``--out`` that does not end in ``.h5``; no h5py needed), where JAX's
+script writes ``proxy.h5``.  Its sequences are independent, so
+``build --seqs S`` renders and stores only those sequences, and one
+process a sequence can run in parallel.
 
 Stages (composable):
   python scripts/torch_accuracy_proxy.py build              # render + store
@@ -33,14 +30,12 @@ Stages (composable):
 
 ``train`` and ``eval`` run on the CUDA card unless ``--device cpu`` is
 given.  Artifacts go under ``RSLO_PROXY_ROOT`` (default
-``$TMPDIR/rslo_proxy_torch``): the tree, the store, ``model_<tag>/``
-run dirs, ``train_<middle>.json``, ``eval_<middle>.json`` and
-``result_<tag>.json``.
+``$TMPDIR/rslo_proxy_torch``): the tree, the store ``proxy_store/``,
+``model_<tag>/`` run dirs, ``train_<middle>.json``,
+``eval_<middle>.json`` and ``result_<tag>.json``.
 """
 import argparse
-import contextlib
 import dataclasses
-import importlib.util
 import json
 import os
 import sys
@@ -55,7 +50,7 @@ import numpy as np
 ROOT = Path(os.environ.get("RSLO_PROXY_ROOT",
                            Path(tempfile.gettempdir()) / "rslo_proxy_torch"))
 TREE = ROOT / "kitti_tree"
-H5 = ROOT / "proxy.h5"
+STORE = ROOT / "proxy_store"
 
 # seq id -> (frames, pattern, speed m/s).  Lengths sized so the
 # standard KITTI 100-300 m segments fit (0.8-1.1 m/frame).
@@ -79,7 +74,7 @@ def base_cfg(middle: str, steps: int):
     cfg = cfg.replace(
         middle=dataclasses.replace(cfg.middle, name=middle),
         data=dataclasses.replace(
-            cfg.data, root=str(H5), train_sequences=TRAIN_SEQS,
+            cfg.data, root=str(STORE), train_sequences=TRAIN_SEQS,
             val_sequences=VAL_SEQS, eval_train_sequences=(0,),
             num_workers=2,
             # magnitude diversity (train time only): slerp pose
@@ -104,119 +99,10 @@ def base_cfg(middle: str, steps: int):
     return cfg
 
 
-def store_kind() -> str:
-    """"h5" where h5py is installed, else "npz"."""
-    return "h5" if importlib.util.find_spec("h5py") is not None else "npz"
-
-
-def npz_path(h5_path, seq: int) -> Path:
-    """The npz store's file of ``seq``, beside ``h5_path``."""
-    return Path(h5_path).parent / f"proxy_{seq:02d}.npz"
-
-
-def write_npz_store(seqs, tree=None, h5_path=None):
-    """One ``proxy_XX.npz`` a sequence of the KITTI tree: every frame's
-    ``build_frame_record`` (what the ``create_hdf5`` verb stores) as one
-    array a dataset with the frames' row counts, the poses (n, 12) and
-    ``Tr`` (12,), as ``create_hdf5`` writes them."""
-    from rslo_tpu_torch.data.hdf5_store import build_frame_record
-    from rslo_tpu_torch.data.kitti_io import (list_frames, read_calib,
-                                              read_poses, read_velodyne,
-                                              sequence_paths)
-    tree = TREE if tree is None else tree
-    h5_path = H5 if h5_path is None else h5_path
-    for seq in seqs:
-        velo_dir, seq_dir, pose_file = sequence_paths(tree, seq)
-        frames = list_frames(velo_dir)
-        n = len(frames)
-        Tr = read_calib(seq_dir)["Tr"].reshape(-1)
-        poses = (read_poses(pose_file)[:n] if pose_file is not None
-                 else np.tile(np.eye(3, 4).reshape(1, 3, 4), (n, 1, 1)))
-        t0 = time.perf_counter()
-        recs = []
-        for i, fr in enumerate(frames):
-            recs.append({k: np.asarray(v, np.float32) for k, v in
-                         build_frame_record(read_velodyne(fr)).items()})
-            if i % 100 == 0:
-                print(f"seq {seq:02d}: {i}/{n}", flush=True)
-        arrays = {"poses": poses.reshape(n, 12), "Tr": Tr}
-        for k in recs[0]:
-            arrays[f"rec__{k}"] = np.concatenate([r[k] for r in recs])
-            arrays[f"len__{k}"] = np.array([len(r[k]) for r in recs],
-                                           np.int64)
-        out = npz_path(h5_path, seq)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.npz")
-        np.savez(tmp, **arrays)
-        os.replace(tmp, out)
-        print(f"seq {seq:02d}: {n} records in "
-              f"{(time.perf_counter() - t0) * 1e3 / max(n, 1):.1f} ms a "
-              f"frame -> {out}", flush=True)
-
-
-_NPZ = {}
-
-
-class NpzSequenceReader:
-    """Random access to one sequence's frames in the npz store, with
-    ``data/hdf5_store.py::SequenceReader``'s contract: constructed from
-    the config's store path and a sequence, ``n_frames`` and
-    ``frame(i, cross_normals)`` returning what ``SequenceReader`` reads
-    from ``create_hdf5``'s store of the same tree.  A file is loaded
-    once a process."""
-
-    def __init__(self, h5_path, seq: int):
-        self.path, self.seq = h5_path, seq
-        f = str(npz_path(h5_path, seq).resolve())
-        if f not in _NPZ:
-            with np.load(f) as z:
-                data = {k: z[k] for k in z.files}
-            starts = {k[len("len__"):]: np.concatenate(
-                [[0], np.cumsum(v)]) for k, v in data.items()
-                if k.startswith("len__")}
-            _NPZ[f] = (data, starts)
-        self._data, self._starts = _NPZ[f]
-        self.n_frames = len(self._data["poses"])
-
-    def _rows(self, key, i):
-        lo, hi = self._starts[key][i:i + 2]
-        return self._data[f"rec__{key}"][lo:hi].copy()
-
-    def frame(self, i: int, cross_normals: bool = False) -> dict:
-        pts = self._rows("lidar_points", i)
-        nrm = self._rows("lidar_normals", i)
-        if cross_normals and "lidar_cross_normals" in self._starts:
-            cols = [pts, self._rows("lidar_cross_normals", i), nrm]
-        else:
-            cols = [pts, nrm]
-        out = {"points": np.concatenate(cols, axis=1),
-               "pose": self._data["poses"][i].reshape(3, 4).copy(),
-               "Tr": self._data["Tr"].reshape(3, 4).copy()}
-        for k in self._starts:
-            if k.startswith("hier_"):
-                out[k] = self._rows(k, i)
-        return out
-
-
-@contextlib.contextmanager
-def store_readers():
-    """The datasets read the npz store while the block runs, where the
-    store is npz."""
-    from rslo_tpu_torch.data import dataset
-    if store_kind() == "h5":
-        yield
-        return
-    saved = dataset.SequenceReader
-    dataset.SequenceReader = NpzSequenceReader
-    try:
-        yield
-    finally:
-        dataset.SequenceReader = saved
-
-
 def cmd_build(args):
-    """Render (optionally one seq per process: --seqs 0) + build the
-    store (h5: after all renders, or --h5_only; npz: the rendered
-    sequences, or all of --seqs with --h5_only)."""
+    """Render (optionally one seq per process: --seqs 0) and store those
+    sequences (--h5_only: store them without rendering)."""
+    from rslo_tpu_torch.cli import main
     from rslo_tpu_torch.utils.world import write_kitti_tree
     TREE.mkdir(parents=True, exist_ok=True)
     seqs = (SEQS if args.seqs is None else
@@ -232,18 +118,12 @@ def cmd_build(args):
               flush=True)
         np.savez(ROOT / f"gt_poses_{'_'.join(map(str, seqs))}.npz",
                  **{f"seq{k}": v[0] for k, v in gt.items()})
-    if store_kind() == "npz":
-        write_npz_store(seqs)
-        print("proxy store ready:", ", ".join(
-            str(npz_path(H5, s)) for s in seqs), flush=True)
-    elif args.seqs is None or args.h5_only:
-        from rslo_tpu_torch.cli import main
-        # --seqs + --h5_only builds a store restricted to those
-        # sequences (e.g. a val-only store in a fresh RSLO_PROXY_ROOT
-        # with a different --world_seed: the scene-generalization probe)
-        main(["create_hdf5", "--kitti_root", str(TREE), "--out", str(H5),
-              "--sequences", ",".join(str(s) for s in seqs)])
-        print("proxy store ready:", H5, flush=True)
+    # a directory store's sequences are independent: --seqs writes only
+    # those (e.g. a val-only store in a fresh RSLO_PROXY_ROOT with a
+    # different --world_seed: the scene-generalization probe)
+    main(["create_hdf5", "--kitti_root", str(TREE), "--out", str(STORE),
+          "--sequences", ",".join(str(s) for s in seqs)])
+    print("proxy store ready:", STORE, flush=True)
 
 
 def _model_dir(middle, supervised, tag=""):
@@ -284,8 +164,7 @@ def cmd_train(args):
         argv.append("--supervised")
     if args.init_from:
         argv += ["--pretrained", args.init_from]
-    with store_readers():
-        return main(argv + ["--device", args.device])
+    return main(argv + ["--device", args.device])
 
 
 def cmd_eval(args):
@@ -313,8 +192,7 @@ def cmd_eval(args):
         argv.append("--refine_ba")
     if getattr(args, "max_windows", None):
         argv += ["--max_windows", str(args.max_windows)]
-    with store_readers():
-        main(argv + ["--device", args.device])
+    main(argv + ["--device", args.device])
     # the evaluate verb writes eval_results.json into the model dir
     res = json.loads((Path(mdir) / "eval_results.json").read_text())
     tag = args.middle + ("_sup" if args.supervised else "")
@@ -378,7 +256,8 @@ def main(argv=None):
     b.add_argument("--world_seed", type=int, default=0)
     b.add_argument("--seqs", default=None,
                    help="comma list; render only these (parallel use)")
-    b.add_argument("--h5_only", action="store_true")
+    b.add_argument("--h5_only", action="store_true",
+                   help="store the sequences without rendering them")
     b.add_argument("--profile", default="walk",
                    choices=("walk", "varied", "urban"),
                    help="speed profile; 'varied' = urban-drive "

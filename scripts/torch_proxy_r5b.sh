@@ -32,7 +32,8 @@ nvidia-smi --query-gpu=name,power.limit --format=csv,noheader \
 stamp() { echo "$(date +%H:%M:%S) +$(( $(date +%s) - START ))s $*" \
   | tee -a "$OUT/timeline.txt"; }
 
-# 1. render + store: one process a sequence
+# 1. render + store: one process a sequence, each into the one
+# directory store
 stamp build start
 pids=()
 for s in 0 1 2 3 7; do
@@ -42,10 +43,6 @@ done
 for p in "${pids[@]}"; do
   wait "$p" || { stamp "build FAILED"; exit 1; }
 done
-if python -c "import h5py" 2>/dev/null; then
-  $PROXY build --h5_only --profile urban > "$OUT/build_h5.log" 2>&1 \
-    || { stamp "h5 store FAILED"; exit 1; }
-fi
 stamp build done
 
 # 2-3. train each middle, evaluate its best checkpoint; the middles run

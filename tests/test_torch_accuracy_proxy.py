@@ -2,10 +2,12 @@
 against the JAX package's (``scripts/accuracy_proxy.py``, loaded as it
 is through importlib with ``RSLO_PROXY_SEQSET`` and ``RSLO_PROXY_ROOT``
 set for it): the sequences and configs, the argv each stage hands its
-package's ``cli.main`` (recorded by a stand-in), the report's text, the
-npz store's frames against ``SequenceReader`` over the port's
-``create_hdf5`` store, and a tiny build -> train -> eval -> report on
-the CPU."""
+package's ``cli.main`` (recorded by a stand-in), the report's text, and
+a tiny build -> train -> eval -> report on the CPU without h5py.  The
+port's script keeps its store in a directory store (``STORE``) where
+JAX's writes ``proxy.h5`` (``H5``): the configs and argv differ in that
+path alone.  Its build stage's store is held byte for byte against
+JAX's in tests/test_torch_store.py."""
 import dataclasses
 import functools
 import importlib.util
@@ -22,8 +24,6 @@ from torch_port_helpers import port_cfg, to_port
 import rslo_tpu.cli as jax_cli
 import rslo_tpu_torch.cli as port_cli
 from rslo_tpu.config.schema import PipelineCfg as JaxPipelineCfg
-from rslo_tpu_torch.data import dataset as port_dataset
-from rslo_tpu_torch.data.hdf5_store import SequenceReader, create_hdf5
 from rslo_tpu_torch.utils import world
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -50,8 +50,7 @@ def _load(which, root, seqset, monkeypatch):
 
 @pytest.fixture
 def pair(tmp_path, monkeypatch):
-    """(jax script, port script, their roots) for a seqset; the port's
-    store is h5 unless a test says otherwise."""
+    """(jax script, port script, their roots) for a seqset."""
     def make(seqset=None):
         roots = tmp_path / "jax", tmp_path / "port"
         for r in roots:
@@ -79,10 +78,12 @@ def test_sequences_match_jax(pair, seqset):
 def test_base_cfg_matches_jax(pair, tmp_path, monkeypatch, seqset, middle,
                               steps):
     jax_mod, port_mod, roots = pair(seqset)
-    # one root, so the store path in the config is the same
+    # one root, so the store paths differ only in their names
     port_mod = _load("port", roots[0], seqset, monkeypatch)
     want = to_port(jax_mod.base_cfg(middle, steps)).to_json()
-    assert port_mod.base_cfg(middle, steps).to_json() == want
+    assert port_mod.STORE.parent == jax_mod.H5.parent
+    assert _jax_text(port_mod.base_cfg(middle, steps).to_json(), jax_mod,
+                     port_mod, roots) == want
 
 
 # -- (b) the argv of each stage -------------------------------------------
@@ -113,11 +114,18 @@ def _run_both(jax_mod, port_mod, argv, monkeypatch):
     port_mod.main(argv)
 
 
-def _as_jax(argv, roots):
-    """The port's argv with its root replaced by JAX's and its
+def _jax_text(text, jax_mod, port_mod, roots):
+    """``text`` of the port's script with its store replaced by JAX's
+    and its root by JAX's."""
+    return text.replace(str(port_mod.STORE), str(jax_mod.H5)).replace(
+        str(roots[1]), str(roots[0]))
+
+
+def _as_jax(argv, roots, jax_mod, port_mod):
+    """The port's argv in JAX's paths (``_jax_text``) with its
     ``--device`` taken off (it must be the last two entries)."""
     assert argv[-2:] in (["--device", "cpu"], ["--device", "cuda"])
-    return [a.replace(str(roots[1]), str(roots[0])) for a in argv[:-2]]
+    return [_jax_text(a, jax_mod, port_mod, roots) for a in argv[:-2]]
 
 
 TRAIN_VARIANTS = [
@@ -145,12 +153,12 @@ def test_train_stage_matches_jax(pair, monkeypatch, seqset, variant):
     _run_both(jax_mod, port_mod, ["train", *variant], monkeypatch)
     (jax_argv,), (port_argv,) = seen["jax"], seen["port"]
     assert port_argv[-2:] == ["--device", "cuda"]   # the default
-    assert _as_jax(port_argv, roots) == jax_argv
+    assert _as_jax(port_argv, roots, jax_mod, port_mod) == jax_argv
     cfg_path = jax_argv[jax_argv.index("--config") + 1]
     jax_cfg = JaxPipelineCfg.from_json(open(cfg_path).read())
     port_text = open(port_argv[port_argv.index("--config") + 1]).read()
-    # the config files differ only in the store path (the roots)
-    assert port_text.replace(str(roots[1]), str(roots[0])) == \
+    # the config files differ only in the store path
+    assert _jax_text(port_text, jax_mod, port_mod, roots) == \
         to_port(jax_cfg).to_json()
 
 
@@ -174,11 +182,11 @@ def test_eval_stage_matches_jax(pair, monkeypatch, variant):
     seen = _recorders(monkeypatch, roots)
     _run_both(jax_mod, port_mod, ["eval", *variant], monkeypatch)
     (jax_argv,), (port_argv,) = seen["jax"], seen["port"]
-    assert _as_jax(port_argv, roots) == jax_argv
+    assert _as_jax(port_argv, roots, jax_mod, port_mod) == jax_argv
     jax_cfg = JaxPipelineCfg.from_json(
         open(jax_argv[jax_argv.index("--config") + 1]).read())
     port_text = open(port_argv[port_argv.index("--config") + 1]).read()
-    assert port_text.replace(str(roots[1]), str(roots[0])) == \
+    assert _jax_text(port_text, jax_mod, port_mod, roots) == \
         to_port(jax_cfg).to_json()
     # the same result file, holding what the verb wrote
     got = sorted(p.name for p in roots[1].glob("result_*.json"))
@@ -191,14 +199,16 @@ def test_eval_stage_matches_jax(pair, monkeypatch, variant):
 @pytest.mark.parametrize("seqs", [None, "0,7"])
 def test_build_store_stage_matches_jax(pair, monkeypatch, seqs):
     jax_mod, port_mod, roots = pair()
-    monkeypatch.setattr(port_mod, "store_kind", lambda: "h5")
     seen = _recorders(monkeypatch, roots)
     argv = ["build", "--h5_only"] + ([] if seqs is None else
                                      ["--seqs", seqs])
     _run_both(jax_mod, port_mod, argv, monkeypatch)
     (jax_argv,), (port_argv,) = seen["jax"], seen["port"]
     assert port_argv[0] == "create_hdf5"
-    assert [a.replace(str(roots[1]), str(roots[0])) for a in port_argv] \
+    # the same verb and sequences; the port's --out a directory store
+    out = port_argv[port_argv.index("--out") + 1]
+    assert out == str(port_mod.STORE) and not out.endswith(".h5")
+    assert [_jax_text(a, jax_mod, port_mod, roots) for a in port_argv] \
         == jax_argv
 
 
@@ -248,40 +258,7 @@ def test_report_matches_jax(pair, capsys):
     assert len(want) == 3 and got == want
 
 
-# -- (d) the npz store against SequenceReader ------------------------------
-
-@pytest.fixture(scope="module")
-def tiny_tree(tmp_path_factory):
-    root = tmp_path_factory.mktemp("proxy_tree")
-    world.write_kitti_tree(root / "tree", {0: (3, "curve", 3.0),
-                                           7: (3, "loop", 3.0)},
-                           world_seed=3, n_beams=16, n_azimuth=512,
-                           world_kwargs=TINY_WORLD)
-    return root
-
-
-def test_npz_reader_matches_sequence_reader(tiny_tree, pair):
-    _, port_mod, _ = pair()
-    h5 = tiny_tree / "proxy.h5"
-    create_hdf5(str(tiny_tree / "tree"), str(h5), sequences=(0, 7),
-                progress=False)
-    port_mod.write_npz_store((0, 7), tree=tiny_tree / "tree", h5_path=h5)
-    for seq in (0, 7):
-        got = port_mod.NpzSequenceReader(str(h5), seq)
-        want = SequenceReader(str(h5), seq)
-        assert got.n_frames == want.n_frames == 3
-        for i in range(3):
-            for cross in (False, True):
-                a, b = got.frame(i, cross), want.frame(i, cross)
-                assert sorted(a) == sorted(b)
-                assert "hier_lidar_points_normals_0.1" in a
-                for k in b:
-                    assert a[k].dtype == b[k].dtype, (seq, i, k)
-                    assert a[k].shape == b[k].shape, (seq, i, k)
-                    assert a[k].tobytes() == b[k].tobytes(), (seq, i, k)
-
-
-# -- (e) build -> train -> eval -> report on the CPU -----------------------
+# -- (d) build -> train -> eval -> report on the CPU -----------------------
 
 def _tiny(base_cfg):
     """``base_cfg`` at the tiny test model and 4096 points a scan."""
@@ -309,7 +286,8 @@ def _keys(x):
 
 def test_tiny_proxy_end_to_end(pair, monkeypatch, capsys):
     _, port_mod, roots = pair()
-    monkeypatch.setattr(port_mod, "store_kind", lambda: "npz")
+    # as on the card's machine: no h5py
+    monkeypatch.setitem(sys.modules, "h5py", None)
     monkeypatch.setattr(port_mod, "SEQS", {0: (6, "curve", 3.0),
                                            7: (6, "loop", 3.0)})
     monkeypatch.setattr(port_mod, "TRAIN_SEQS", (0,))
@@ -317,12 +295,10 @@ def test_tiny_proxy_end_to_end(pair, monkeypatch, capsys):
     monkeypatch.setattr(world, "write_kitti_tree", functools.partial(
         world.write_kitti_tree, n_beams=16, n_azimuth=512,
         world_kwargs=TINY_WORLD))
-    # the npz store is read through the stand-in reader, not h5
-    monkeypatch.setattr(port_dataset, "SequenceReader", None)
+    # one build a sequence, into the one directory store
     port_mod.main(["build", "--seqs", "0"])
     port_mod.main(["build", "--seqs", "7"])
-    assert sorted(p.name for p in roots[1].glob("proxy_*.npz")) == [
-        "proxy_00.npz", "proxy_07.npz"]
+    assert sorted(os.listdir(port_mod.STORE)) == ["00", "07"]
     state = port_mod.main(["train", "--steps", "2", "--steps_per_eval",
                            "2", "--device", "cpu"])
     assert state.step == 2
@@ -334,7 +310,7 @@ def test_tiny_proxy_end_to_end(pair, monkeypatch, capsys):
     plain = port_mod.main(["eval", "--device", "cpu"])
     loops = port_mod.main(["eval", "--ckpt_step", "best", "--refine_loops",
                            "--device", "cpu"])
-    assert port_dataset.SequenceReader is None
+    assert sys.modules["h5py"] is None
     assert plain["_meta"]["windows"] == 5 and loops["_meta"]["windows"] == 4
     assert set(plain) == {"_meta", "seq_07", "avg"}
     for k in ("ate_rmse_m", "frame_t_err_m", "frame_q_err_deg"):

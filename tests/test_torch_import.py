@@ -252,3 +252,28 @@ def test_split_bench_and_utility_modules_import_without_jax():
                 else path + ".py")
         assert not _imported_roots(path) & {"jax", "flax", "rslo_tpu"}, \
             name
+
+
+def test_kitti_e2e_script_builds_a_store_without_jax_or_h5py(tmp_path):
+    """``scripts/torch_kitti_e2e_smoke.py`` in a fresh process: its tree
+    and the directory store built from it load no jax, flax, rslo_tpu,
+    h5py or matplotlib, and no import statement of the script names
+    jax, flax or rslo_tpu."""
+    script = os.path.join(REPO, "scripts", "torch_kitti_e2e_smoke.py")
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('twin', {script!r})\n"
+        "twin = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(twin)\n"
+        f"tree = twin.build_tree({str(tmp_path / 'tree')!r}, n_points=500,"
+        " n_frames=2)\n"
+        f"twin.create_store(tree, {str(tmp_path / 'store')!r})\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'rslo_tpu', 'h5py', 'matplotlib')))\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+    assert sorted(os.listdir(tmp_path / "store")) == ["00", "01"]
+    assert not _imported_roots(script) & {"jax", "flax", "rslo_tpu"}
