@@ -288,6 +288,21 @@ small size.  Phases (each one exits non-zero when it fails):
      process, the reader's ms a frame (cold map and warm), the loader's
      ms a batch alone, the step ms and the verb's peak RSS, eval
      windows/s
+ 29. the twins of the JAX repo's last scripts (``script_twin_phases``)
+     on phase 27's store and model dirs: ``diag_icp_closure`` at its
+     64 x 1024 beams and 8192 points (B3 63 launches, B3 at 1 x 8192^2
+     bit-equal to its plain version, timed beside its bound),
+     ``diag_target_consistency``, ``diag_preds``, ``diag_pairtypes`` and
+     ``diag_sensitivity`` on each middle and ``diag_yaw_head`` on the
+     pillar (B1 14 a frame for the sparse middle), ``diag_pseudo`` on
+     each middle with and without ``--warmup`` (B1 20 a frame, B3 an
+     ICP iteration a window), ``eval_trend`` (its rows phase 27's hook
+     evals), ``eval_gen_world`` of each middle's best step on the val
+     loop rendered from world 1 (built in a process of its own beside
+     the probes; B1 28 a window for the sparse middle, JAX's result
+     keys), and the scaling bench at world 1 and 2 (gloo ranks sharing
+     the card; equal losses, rank 0's B3 as predicted); every printed
+     number finite; each twin's wall time and windows/s
 
 Kernel times (``ms``, ``plain_ms``, ``frame_ms``) are device times: the
 calls are captured in a CUDA graph and replayed, so the host's launch
@@ -309,7 +324,7 @@ to run).
 
 The last two lines of standard output are the kernel summary (JSON;
 each kernel's ``launches`` from phase 10 and its launches on the paths
-of phases 14-28 beside them) and the result (JSON); the card's
+of phases 14-29 beside them) and the result (JSON); the card's
 ``nvidia-smi`` line comes before.
 Needs one card, no network, and no JAX.
 """
@@ -319,6 +334,7 @@ import ctypes
 import copy
 import dataclasses
 import importlib.util
+import io
 import json
 import math
 import os
@@ -3076,32 +3092,40 @@ def dp_rank(spec_path):
 def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23",
                  own_rss=False):
     """Start one process a spec (``entry``: ``dp_rank``, ``split_rank``,
-    ``proxy_build``, ``store_build`` or ``kitti_train``), wait for all
-    (DP_TIMEOUT_S) and return their results; a rank that fails or hangs
-    fails the run, and every rank is stopped first.  Specs and results
-    go through ``torch.save`` files, or JSON where ``torch`` is None (a
-    process that needs no torch).  ``own_rss``: each process is started
-    by a bare interpreter of its own (``RSS_LAUNCHER``), so that its
-    ``ru_maxrss`` is its own peak and not this script's (Linux carries
-    the peak of the process that calls ``exec`` into the new program's
-    ``ru_maxrss``)."""
-    def save(obj, path):
-        if torch is None:
-            with open(path, "w") as fh:
-                json.dump(obj, fh)
-        else:
-            torch.save(obj, path)
+    ``proxy_build``, ``store_build``, ``kitti_train`` or
+    ``gen_world_build``), wait for all (DP_TIMEOUT_S) and return their
+    results; a rank that fails or hangs fails the run, and every rank is
+    stopped first.  Specs and results go through ``torch.save`` files,
+    or JSON where ``torch`` is None (a process that needs no torch).
+    ``own_rss``: each process is started by a bare interpreter of its
+    own (``RSS_LAUNCHER``), so that its ``ru_maxrss`` is its own peak
+    and not this script's (Linux carries the peak of the process that
+    calls ``exec`` into the new program's ``ru_maxrss``)."""
+    return wait_ranks(start_ranks(specs, torch, entry, own_rss), specs,
+                      torch, phase, own_rss)
 
-    def load(path):
-        if torch is None:
-            with open(path) as fh:
-                return json.load(fh)
-        return torch.load(path, weights_only=False)
 
+def _save_spec(obj, path, torch):
+    if torch is None:
+        with open(path, "w") as fh:
+            json.dump(obj, fh)
+    else:
+        torch.save(obj, path)
+
+
+def _load_result(path, torch):
+    if torch is None:
+        with open(path) as fh:
+            return json.load(fh)
+    return torch.load(path, weights_only=False)
+
+
+def start_ranks(specs, torch, entry, own_rss=False):
+    """``run_dp_ranks``' processes, started; ``wait_ranks`` joins them."""
     procs = []
     for spec in specs:
         path = spec["out"] + ".spec"
-        save(spec, path)
+        _save_spec(spec, path, torch)
         code = ("import sys; sys.path.insert(0, %r); import chip_smoke; "
                 "chip_smoke.%s(%r)" % (REPO, entry, path))
         argv = [sys.executable, "-c", code]
@@ -3110,6 +3134,11 @@ def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23",
         procs.append(subprocess.Popen(
             argv, cwd=REPO, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, start_new_session=own_rss))
+    return procs
+
+
+def wait_ranks(procs, specs, torch, phase, own_rss=False):
+    """Join ``start_ranks``' processes and return their results."""
     logs = []
     try:
         for p in procs:
@@ -3128,7 +3157,7 @@ def run_dp_ranks(specs, torch, entry="dp_rank", phase="phase 23",
         if p.returncode != 0:
             fail(f"{phase}: rank {spec['rank']} exited {p.returncode}:\n"
                  f"{log[-4000:]}")
-    return [load(s["out"]) for s in specs]
+    return [_load_result(s["out"], torch) for s in specs]
 
 
 def data_parallel_phases(tcfg, batches, history, rb_ops, cli, Trainer,
@@ -4586,8 +4615,9 @@ def proxy_phases(rb_ops, counted, reset_counts, counts, dev, smi_line, np,
     the prediction, the hook's against its windows); ``eval --ckpt_step
     best --refine_loops`` of each; ``report``.  ``cfg_hook`` wraps the
     script's ``base_cfg`` (a rehearsal's tiny model).  ``rb_ops`` are
-    the train frame's convs (``predicted_launches``).  Returns each
-    path's launches by kernel."""
+    the train frame's convs (``predicted_launches``).  PROXY_DIR stays
+    for phase 29, which deletes it.  Returns each path's launches by
+    kernel."""
     from rslo_tpu_torch.eval import runner
     from rslo_tpu_torch.losses import consistency
     from rslo_tpu_torch.ops.chamfer import nn_search, nn_search_plain
@@ -4730,7 +4760,6 @@ def proxy_phases(rb_ops, counted, reset_counts, counts, dev, smi_line, np,
     if len(rows) != 3 * len(steps) or not all(
             v is not None and math.isfinite(v) for r in rows for v in r[1:]):
         fail(f"proxy report: rows {rows}")
-    shutil.rmtree(PROXY_DIR, ignore_errors=True)
     say(f"[phase 27] {time.perf_counter() - t_phase:.1f} s")
     return {"proxy_pillar_train_launches": launches["PillarMiddleCov"],
             "proxy_sparse_train_launches": launches["SparseMiddleCov"],
@@ -5046,6 +5075,308 @@ def kitti_store_phases(rb_ops, counted, reset_counts, counts, dev, smi_line,
     return {"kitti_train_launches": tr["total"],
             "kitti_eval_launches": eval_launches,
             "kitti_refined_launches": refined_launches}
+
+
+# -- phase 29: the twins of the JAX repo's last scripts ---------------------
+
+# scripts/torch_diag_*.py, torch_eval_trend.py, torch_eval_gen_world.py
+# and torch_scaling_bench.py on phase 27's directory store and its two
+# trained model dirs (full width, the proxy's base_cfg): each probe at
+# its JAX script's defaults; the generalization eval's world-1 val loop
+# rendered as phase 27's (its frames, beams and speed; the JAX script's
+# build command, so its default speed profile), in a process of its own
+# beside the probes; the scaling bench at world 1 and 2 (gloo ranks
+# sharing the card)
+TWIN_DIR = os.path.join(REPO, "scripts")
+GEN_DIR = os.path.join(REPO, "build", "smoke_gen_world")
+ICP_BEAMS, ICP_CAP = (64, 1024), 8192      # diag_icp_closure's sizes
+PSEUDO_RUNS = (("PillarMiddleCov", False), ("PillarMiddleCov", True),
+               ("SparseMiddleCov", False), ("SparseMiddleCov", True))
+SCALING_WORLDS, SCALING_STEPS = (1, 2), 6
+# the scaling bench's world 2 against world 1: every rank takes the same
+# batch (tests/test_torch_train_step.py's LOSS_TOL)
+SCALING_LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
+FLOAT = re.compile(r"[-+]?(?:\d+\.\d*|\.\d+)(?:[eE][-+]?\d+)?|nan|inf")
+
+
+def load_script(name):
+    """``scripts/<name>.py`` as a fresh module."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(TWIN_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def printed(fn, *args, **kw):
+    """(``fn``'s result, what it printed, its wall seconds); the text is
+    also echoed, each line tagged."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        say(f"    | {line}")
+    return out, buf.getvalue(), wall
+
+
+def all_finite(text):
+    """Every float a text prints is finite (and it prints one)."""
+    vals = [float(v) for v in FLOAT.findall(text)]
+    return bool(vals) and all(math.isfinite(v) for v in vals)
+
+
+def gen_world_build(spec_path):
+    """Phase 29f's build in its own process, beside the probes:
+    ``scripts/torch_eval_gen_world.py``'s ``build`` stage (the proxy's
+    ``build --seqs 7 --world_seed 1``) with seq 7 at the spec's frames
+    and beams, timed; the result goes to the spec's ``out``."""
+    import functools
+    import torch
+    sys.path.insert(0, REPO)
+    from rslo_tpu_torch.utils import world
+    spec = torch.load(spec_path, weights_only=False)
+    world.write_kitti_tree = functools.partial(
+        world.write_kitti_tree, n_beams=spec["beams"][0],
+        n_azimuth=spec["beams"][1], world_kwargs=spec["world_kwargs"])
+    twin = load_script("torch_eval_gen_world")
+    load = twin.load_proxy
+
+    def at_seq7(root):
+        proxy = load(root)
+        proxy.SEQS = {7: spec["seq7"]}
+        return proxy
+
+    twin.load_proxy = at_seq7
+    t0 = time.perf_counter()
+    argv = twin.build(spec["root"])
+    torch.save({"argv": argv, "total_s": time.perf_counter() - t0},
+               spec["out"])
+
+
+def script_twin_phases(proxy, counted, reset_counts, counts, dev, smi_line,
+                       np, torch, seqs=PROXY_SEQS, steps=PROXY_STEPS,
+                       beams=WORLD_BEAMS, world_kwargs=None,
+                       icp_sizes=(ICP_BEAMS, ICP_CAP), cfg_hook=None):
+    """Phase 29: the twins of the JAX repo's last scripts on the card, on
+    phase 27's store and model dirs (``proxy``: phase 27's proxy module,
+    its ``base_cfg`` the configuration of those runs).  (a)
+    ``diag_icp_closure`` (B3's launches against ``ICP_ITERS``, B3 at
+    1 x ICP_CAP^2 bit-equal to its plain version and timed beside its
+    bound); (b) ``diag_target_consistency``; (c) ``diag_preds``,
+    ``diag_pairtypes``, ``diag_sensitivity`` on each middle and
+    ``diag_yaw_head`` on the pillar (14 B1 launches a frame for the
+    sparse middle, none for the pillar); (d) ``diag_pseudo`` on each
+    middle with and without ``--warmup`` (20 B1 a frame in train mode,
+    B3 an ICP iteration a window); (e) ``eval_trend`` of both model
+    dirs (its rows the hook evals phase 27 logged); (f)
+    ``eval_gen_world`` of each middle's best step on seq 7 rendered from
+    world 1 (its build started first, in a process of its own); (g) the
+    scaling bench at world 1 and 2.  Every printed number finite.
+    ``world_kwargs`` and ``icp_sizes`` shrink the work for a rehearsal,
+    and ``cfg_hook`` wraps the generalization eval's ``base_cfg`` (the
+    rehearsal's tiny model, as phase 27's).  Deletes PROXY_DIR and
+    GEN_DIR.  Returns each path's launches by kernel."""
+    from rslo_tpu_torch.losses import consistency
+    from rslo_tpu_torch.ops.chamfer import nn_search, nn_search_plain
+    t_phase = time.perf_counter()
+    zero = dict.fromkeys(counted, 0)
+    val_seq = tuple(seqs)[-1]
+    # -- 29f's build first: world 1's val loop, beside the probes --------
+    shutil.rmtree(GEN_DIR, ignore_errors=True)
+    os.makedirs(GEN_DIR)
+    gen_spec = [{"rank": 0, "root": GEN_DIR, "seq7": seqs[val_seq],
+                 "beams": beams, "world_kwargs": world_kwargs,
+                 "out": os.path.join(GEN_DIR, "build.pt")}]
+    gen_procs = start_ranks(gen_spec, torch, "gen_world_build")
+    # the twins import the proxy's script by name: phase 27's module
+    sys.modules["torch_accuracy_proxy"] = proxy
+    diag = dict(zero)
+
+    def counted_run(what, want, fn, *args, **kw):
+        reset_counts()
+        out, text, wall = printed(fn, *args, **kw)
+        torch.cuda.synchronize()
+        got = counts()
+        if got != {**zero, **want}:
+            fail(f"{what}: launches {got}, predicted {want}")
+        if not all_finite(text):
+            fail(f"{what}: a printed number is not finite")
+        for k, v in got.items():
+            diag[k] += v
+        return out, text, wall
+
+    # -- 29a. diag_icp_closure ------------------------------------------------
+    icp = load_script("torch_diag_icp_closure")
+    with Timed(consistency, "nn_search", torch) as searches:
+        _, text, wall = counted_run(
+            "diag_icp_closure", {"nn_search": sum(icp.ICP_ITERS)},
+            icp.main, device=dev.type, beams=icp_sizes[0], cap=icp_sizes[1])
+    rows = [ln for ln in text.splitlines() if "closure" in ln]
+    if len(rows) != len(icp.ICP_ITERS):
+        fail(f"diag_icp_closure: {len(rows)} table rows")
+    src, sm, tgt, tm = searches.calls[0][1]
+    check_nn_search(torch, nn_search, nn_search_plain, src, sm, tgt, tm)
+    n, m = src.shape[1], tgt.shape[1]
+    with torch.no_grad():
+        us = graph_us([("kernel", lambda: nn_search(src, sm, tgt, tm)),
+                       ("plain", lambda: nn_search_plain(src, sm, tgt, tm))],
+                      4, torch, reps=2)
+    bound = bound_ms(nbytes(src, sm, tgt, tm) + n * 8, 9.0 * n * m, "f32")
+    say(f"[twins] diag_icp_closure at {icp_sizes[0][0]} x "
+        f"{icp_sizes[0][1]} beams, cap {icp_sizes[1]}: {len(rows)} rows, "
+        f"every number finite, nn_search {sum(icp.ICP_ITERS)} launches as "
+        f"predicted, {wall:.2f} s; nn_search at 1 x {n} x {m} bit-equal to "
+        f"nn_search_plain; kernel {us['kernel']:.2f} us/call, plain "
+        f"{us['plain']:.2f} us/call (device time, in turns); bound "
+        f"{bound[0] * 1e3:.2f} us ({bound[1]}); {smi_line}")
+    # -- 29b. diag_target_consistency ------------------------------------------
+    tc = load_script("torch_diag_target_consistency")
+    bad, text, wall = counted_run("diag_target_consistency", {}, tc.main)
+    last = text.strip().splitlines()[-1]
+    if not last.startswith(f"{bad} inconsistent pair targets / "):
+        fail(f"diag_target_consistency: last line {last!r}")
+    say(f"[twins] diag_target_consistency: {last} ({wall:.2f} s, host)")
+    # -- 29c. the eval-mode probes ----------------------------------------------
+    L2 = 2 * ENCODER_CONVS
+    for middle, _ in steps:
+        sparse = middle != "PillarMiddleCov"
+        for name, args, windows, frames in (
+                ("torch_diag_preds", (middle, 24), 24, 2),
+                ("torch_diag_pairtypes", (middle, 6, False), 6, 3),
+                ("torch_diag_sensitivity", (middle, False), 5, 2)):
+            twin = load_script(name)
+            want = ({"gather_matmul": ENCODER_CONVS * frames * windows}
+                    if sparse else {})
+            _, _, wall = counted_run(f"{name} {middle}", want, twin.main,
+                                     *args, device=dev.type)
+            say(f"[twins] {name} {middle}: {windows} windows of {frames} "
+                f"frames, launches {want or 'none'} as predicted, every "
+                f"number finite, {wall:.2f} s, {windows / wall:.3f} "
+                f"windows/s (host clock, the restore included); {smi_line}")
+    yaw = load_script("torch_diag_yaw_head")
+    _, _, wall = counted_run("diag_yaw_head", {}, yaw.main, "", 8, False,
+                             device=dev.type)
+    say(f"[twins] torch_diag_yaw_head PillarMiddleCov: 8 windows, no "
+        f"launch, every number finite, {wall:.2f} s, {8 / wall:.3f} "
+        f"windows/s; {smi_line}")
+    # -- 29d. diag_pseudo ---------------------------------------------------
+    pseudo = load_script("torch_diag_pseudo")
+    for middle, warmup in PSEUDO_RUNS:
+        lcfg = proxy.base_cfg(middle, 100).loss
+        icp_n = lcfg.warmup_icp_iter if warmup else lcfg.icp_iter
+        want = {"nn_search": icp_n * 16}
+        if middle != "PillarMiddleCov":
+            want["gather_matmul"] = ALL_CONVS * 2 * 16
+        _, _, wall = counted_run(f"diag_pseudo {middle} warmup {warmup}",
+                                 want, pseudo.main, middle, 16, warmup,
+                                 device=dev.type)
+        say(f"[twins] torch_diag_pseudo {middle}"
+            f"{' --warmup' if warmup else ''}: 16 windows, launches {want} "
+            f"as predicted, every number finite, {wall:.2f} s, "
+            f"{16 / wall:.3f} windows/s; {smi_line}")
+    # -- 29e. eval_trend ------------------------------------------------------
+    trend = load_script("torch_eval_trend")
+    mdirs = [proxy._model_dir(middle, False) for middle, _ in steps]
+    _, text, _ = printed(trend.main, mdirs)
+    got = [int(ln.split()[0]) for ln in text.splitlines()
+           if ln.strip() and ln.split()[0].isdigit()]
+    want = []
+    for mdir in mdirs:
+        with open(os.path.join(mdir, "log.json.lst")) as fh:
+            want += [r["step"] for r in map(json.loads, fh)
+                     if "eval/ate_rmse_m" in r]
+    if got != want or not all_finite(text):
+        fail(f"eval_trend: rows at steps {got}, the hook evals at {want}")
+    say(f"[twins] torch_eval_trend: rows at steps {got}, the hook evals "
+        f"phase 27 logged, every number finite")
+    # -- 29f. eval_gen_world -------------------------------------------------
+    (built,) = wait_ranks(gen_procs, gen_spec, torch, "phase 29f")
+    n_frames = seqs[val_seq][0]
+    say(f"[twins] eval_gen_world build ({built['argv']}): seq {val_seq:02d} "
+        f"of {n_frames} frames at {beams[0]} x {beams[1]} beams from world "
+        f"1 in {built['total_s']:.1f} s (host, beside 29a-e)")
+    gen = load_script("torch_eval_gen_world")
+    if cfg_hook is not None:
+        load = gen.load_proxy
+
+        def hooked(root):
+            p = load(root)
+            p.base_cfg = cfg_hook(p.base_cfg)
+            return p
+        gen.load_proxy = hooked
+    gen_launches = dict(zero)
+    for middle, _ in steps:
+        gen.copy_model(middle, tag="", train_root=PROXY_DIR,
+                       gen_root=GEN_DIR)
+        reset_counts()
+        (res, rows, argv), _, wall = printed(
+            gen.evaluate, middle, "best", tag="", gen_root=GEN_DIR,
+            device=dev.type)
+        torch.cuda.synchronize()
+        got = counts()
+        windows = res["_meta"]["windows"]
+        want = dict(zero)
+        if middle != "PillarMiddleCov":
+            want["gather_matmul"] = windows * 2 * ENCODER_CONVS
+        keys = {{"seq_00": f"seq_{val_seq:02d}"}.get(k, k): v
+                for k, v in EVAL_KEYS.items()}
+        metrics = {k: res["avg"][k] for k in ("t_rel_pct",
+                                              "r_rel_deg_per_100m",
+                                              "ate_rmse_m")}
+        if got != want or windows != n_frames - 1:
+            fail(f"eval_gen_world {middle}: {windows} windows, launches "
+                 f"{got}, predicted {want}")
+        if {k: list(v) for k, v in res.items()} != keys or not all(
+                math.isfinite(v) for v in metrics.values()):
+            fail(f"eval_gen_world {middle}: keys {list(res)}, metrics "
+                 f"{metrics}")
+        for k, v in got.items():
+            gen_launches[k] += v
+        say(f"[twins] eval_gen_world {middle} --ckpt_step best on world 1: "
+            f"{windows} windows, launches {got} as predicted, t_rel "
+            f"{metrics['t_rel_pct']:.4f} % / r_rel "
+            f"{metrics['r_rel_deg_per_100m']:.4f} deg/100m / ATE "
+            f"{metrics['ate_rmse_m']:.4f} m, JAX's keys, "
+            f"{res['_meta']['frames_per_s']:.3f} windows/s (run_eval's "
+            f"clock), {wall:.2f} s; {smi_line}")
+    # -- 29g. the scaling bench -----------------------------------------------
+    bench = load_script("torch_scaling_bench")
+    results, _, wall = printed(bench.main, list(SCALING_WORLDS), dev.type,
+                               SCALING_STEPS)
+    one, two = results[1], results[2]
+    want = dict(zero)
+    if dev.type == "cuda":      # a rehearsal's plain versions count none
+        want["nn_search"] = bench.bench_cfg().loss.warmup_icp_iter * (
+            1 + SCALING_STEPS)
+    scaling = dict(zero)
+    for n, r in results.items():
+        if r["launches"] != want:
+            fail(f"scaling bench world {n}: rank 0 launched "
+                 f"{r['launches']}, predicted {want}")
+        for k, v in r["launches"].items():
+            scaling[k] += v
+    for key in ("first_loss", "loss"):
+        if not (math.isfinite(one[key]) and np.isclose(
+                two[key], one[key], **SCALING_LOSS_TOL)):
+            fail(f"scaling bench: world 2's {key} {two[key]} against world "
+                 f"1's {one[key]}")
+    say(f"[twins] torch_scaling_bench {SCALING_WORLDS}, {SCALING_STEPS} "
+        f"steps after one: world 1 (no group) {one['dt'] * 1e3:.3f} ms a "
+        f"step, world 2 ({two['backend']}, ranks sharing the card: the path,"
+        f" not scaling) {two['dt'] * 1e3:.3f} ms a step, efficiency "
+        f"{one['dt'] / two['dt'] * 100:.1f}%; losses {one['first_loss']:.6f}"
+        f" -> {one['loss']:.6f} and {two['first_loss']:.6f} -> "
+        f"{two['loss']:.6f} (|diff| {abs(two['loss'] - one['loss']):.3e}); "
+        f"rank 0's nn_search {want['nn_search']} a run as predicted; "
+        f"{wall:.1f} s; {smi_line}")
+    del sys.modules["torch_accuracy_proxy"]
+    shutil.rmtree(PROXY_DIR, ignore_errors=True)
+    shutil.rmtree(GEN_DIR, ignore_errors=True)
+    say(f"[phase 29] {time.perf_counter() - t_phase:.1f} s")
+    return {"diag_launches": diag, "gen_world_launches": gen_launches,
+            "scaling_launches": scaling}
 
 
 def main():
@@ -6285,6 +6616,11 @@ def main():
     more.update(kitti_store_phases(rb_ops, counted, reset_counts, counts,
                                    dev, smi_line, np, torch))
 
+    # -- 29. the twins of the JAX repo's last scripts, on phase 27's runs ---
+    more.update(script_twin_phases(load_proxy(PROXY_DIR, PROXY_SEQS),
+                                   counted, reset_counts, counts, dev,
+                                   smi_line, np, torch))
+
     say(smi_line)
     rows = []
     for name, row in kernel_rows.items():
@@ -6319,7 +6655,10 @@ def main():
                      # script (the eval hook included) and its two
                      # refined evaluations; phase 28's train verb,
                      # evaluate verb and refined evaluate verb from
-                     # the directory stores
+                     # the directory stores; phase 29's probes
+                     # (diag_launches), the generalization eval of both
+                     # middles (gen_world_launches) and the scaling
+                     # bench's rank 0 at world 1 and 2 (scaling_launches)
                      **{path: n[name] for path, n in more.items()},
                      # the device times' sum over one frame's convs, for
                      # the kernels timed conv by conv (row_gather: the

@@ -97,6 +97,37 @@ def test_port_scripts_import_no_jax(script):
     assert not roots & {"jax", "flax", "rslo_tpu"}, sorted(roots)
 
 
+# the twins of the JAX repo's scripts that drive the card; the other two
+# (torch_diag_target_consistency.py, torch_eval_trend.py) work on the
+# host alone, as JAX's do, and take no --device
+CARD_TWINS = ("torch_diag_icp_closure", "torch_diag_preds",
+              "torch_diag_pairtypes", "torch_diag_sensitivity",
+              "torch_diag_yaw_head", "torch_diag_pseudo",
+              "torch_eval_gen_world", "torch_scaling_bench")
+
+
+@pytest.mark.parametrize("script", CARD_TWINS)
+def test_twins_default_to_the_card(script, monkeypatch):
+    """Each twin's command line hands its stages ``cuda`` unless given
+    ``--device cpu``; none falls back to the CPU by itself."""
+    import importlib.util
+    monkeypatch.syspath_prepend(os.path.join(REPO, "scripts"))
+    path = os.path.join(REPO, "scripts", f"{script}.py")
+    spec = importlib.util.spec_from_file_location(f"_{script}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    seen = []
+    monkeypatch.setattr(mod, "main",
+                        lambda *a, **kw: seen.append(a + tuple(kw.values())))
+    mod.cli([])
+    mod.cli(["--device", "cpu"])
+    assert "cuda" in seen[0] and "cpu" not in seen[0]
+    assert "cpu" in seen[1] and "cuda" not in seen[1]
+    with open(path) as fh:
+        text = fh.read()
+    assert "is_available" not in text and "RSLO_CPU" not in text
+
+
 def test_port_sources_import_no_jax():
     """No import statement of the port names the JAX package, jax or
     flax, including ones inside functions that the import walk above
