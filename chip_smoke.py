@@ -217,7 +217,8 @@ small size.  Phases (each one exits non-zero when it fails):
      (e) the ``bench`` verb with RSLO_BENCH_STREAMING=1: its JSON line
      (the JAX bench's keys), finite rates, its B1 launches; (f)
      ``voxelize_mean`` on a 100k-point scan, ``mean_shift`` on 3000
-     points and ``SectionTimer`` on card tensors, card against CPU
+     points card against CPU, and ``utils/timing.py::span`` under
+     ``tracing()`` recording its range on the card
  25. the middle's engine options and the split's semi-global BN
      (``engine_option_phases``), on phase 4's weights and scans at
      ``configs/kitti_eval_ours.json``: (a) ``engine="tiles"``: 8 streamed
@@ -3788,14 +3789,14 @@ def split_phases(cfg, example, bench_main, counted, reset_counts, counts,
     the card.  (e) ``bench_main`` (the ``bench`` verb) with
     RSLO_BENCH_STREAMING=1: its JSON line, its keys and its B1 launches
     (``bench_b1``).  (f) ``voxelize_mean`` on ``vox_points``,
-    ``mean_shift`` at MEANSHIFT_POINTS points and ``SectionTimer`` on
-    the card's tensors, each against the CPU.  Returns the launches of
-    each path."""
+    ``mean_shift`` at MEANSHIFT_POINTS points, each against the CPU, and
+    a ``span`` under ``tracing()`` recording its range on the card (and
+    none while tracing is off).  Returns the launches of each path."""
     import io
     from rslo_tpu_torch.data.prepare import voxelizer_config
     from rslo_tpu_torch.geometry.meanshift import label_modes, mean_shift
     from rslo_tpu_torch.ops.voxelize import voxelize_mean
-    from rslo_tpu_torch.utils.timing import SectionTimer
+    from rslo_tpu_torch.utils import timing
     launches = split_forward_phases(cfg, example, reset_counts, counts, dev,
                                     smi_line, np, torch)
 
@@ -3833,7 +3834,7 @@ def split_phases(cfg, example, bench_main, counted, reset_counts, counts,
         fail(f"24e: the bench launched {bench_launches}, expected {want}")
     launches["bench_launches"] = bench_launches
 
-    # -- 24f. voxelize_mean, mean_shift and SectionTimer, card vs CPU ------
+    # -- 24f. voxelize_mean, mean_shift card vs CPU; a span on the card ---
     vcfg = voxelizer_config(cfg)
     pts = torch.as_tensor(vox_points)
     mask = torch.ones(len(pts), dtype=torch.bool)
@@ -3873,16 +3874,28 @@ def split_phases(cfg, example, bench_main, counted, reset_counts, counts,
         f"weighted: modes max |diff| card vs CPU {d:.3e} (held to "
         f"{MEANSHIFT_TOL}), labels equal; {ms_us:.1f} us a call on the card "
         f"(CUDA events); {smi_line}")
-    timer = SectionTimer()
-    a = torch.ones(2048, 2048, device=dev)
-    for _ in range(3):
-        with timer.section("matmul", sync_value={"out": [a]}):
-            a = a @ a * (1.0 / 2048)
-    if dict(timer.count) != {"matmul": 3} or not timer.avg_ms()["matmul"] > 0:
-        fail(f"24f: SectionTimer counted {dict(timer.count)}, "
-             f"{timer.avg_ms()}")
-    say(f"[a6] SectionTimer on card tensors: {timer.report()} (3 sections, "
-        f"each synchronized on its value's device)")
+    ranges = {}
+    for on in (False, True):
+        a = torch.ones(2048, 2048, device=dev)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof, \
+                timing.tracing(on):
+            for _ in range(3):
+                with timing.span("smoke.matmul"):
+                    a = a @ a * (1.0 / 2048)
+            torch.cuda.synchronize()
+        ranges[on] = [(e.device_type() == torch.autograd.DeviceType.CUDA,
+                       e.duration_ns())
+                      for e in prof.profiler.kineto_results.events()
+                      if e.name() == "smoke.matmul"]
+    on_card = [d for cuda, d in ranges[True] if cuda]
+    if ranges[False] or len(on_card) != 3 or not min(on_card) > 0:
+        fail(f"24f: span ranges off {ranges[False]}, on {ranges[True]}: "
+             f"expected none off, and 3 host and 3 card ranges on")
+    say(f"[a6] span under tracing(): 3 ranges on the host and 3 on the card "
+        f"({sum(on_card) / 3e3:.1f} us each on the card); none off")
     if counts() != dict.fromkeys(counted, 0):
         fail(f"24f: a kernel of B1-B5 launched: {counts()}")
     return launches

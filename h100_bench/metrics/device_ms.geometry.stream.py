@@ -1,0 +1,9 @@
+"""device_ms.geometry.stream: device ms a scan that the program's span
+``geometry`` launched: the rulebooks
+(``models/net.py::OdomNet._middle_geometry``), in the traced run's
+stretch of the program's own spans (``harness/spans.py``)."""
+from harness import spans
+
+
+def read(rec):
+    return spans.device_ms(rec, "stream", "geometry")

@@ -17,6 +17,7 @@ from typing import Iterator
 import numpy as np
 
 from ..config.schema import DataCfg
+from ..utils.timing import span
 from .augment import pose_interp_aug, random_flip_y, random_yaw
 
 # int16 transfer-quantization scales: channels 0-2 are metric positions
@@ -241,7 +242,8 @@ class DataLoader:
 
     def __iter__(self) -> Iterator[dict]:
         while True:
-            item = self._q.get()
+            with span("data.wait"):
+                item = self._q.get()
             if item is None:
                 return
             if isinstance(item, Exception):

@@ -8,6 +8,7 @@ import torch
 
 from ..config.schema import PipelineCfg
 from ..ops.voxelize import VoxelizerConfig, voxelize, voxelize_sorted_mean
+from ..utils.timing import span
 from .loader import quant_scale
 
 
@@ -44,33 +45,35 @@ def prepare_example(points: torch.Tensor, point_mask: torch.Tensor,
     features (``voxel_features`` (L, V, F), the normal columns 4:7
     re-normalized after averaging), which is what the mean VFE
     ``SimpleVoxelXYZINormal`` makes of the stacks."""
-    points = dequantize_points(points)
-    L = points.shape[0]
-    if not mean_mode:
-        vox = [voxelize(points[t], point_mask[t], vcfg) for t in range(L)]
+    with span("prepare"):
+        points = dequantize_points(points)
+        L = points.shape[0]
+        if not mean_mode:
+            vox = [voxelize(points[t], point_mask[t], vcfg)
+                   for t in range(L)]
+            return {
+                "voxels": torch.stack([v.voxels for v in vox]),
+                "num_points": torch.stack([v.num_points for v in vox]),
+                "coords": torch.stack([v.coords for v in vox]),
+                "voxel_mask": torch.stack([v.mask for v in vox]),
+            }
+        vox = [voxelize_sorted_mean(points[t], point_mask[t], vcfg)
+               for t in range(L)]
+        feats = []
+        for v in vox:
+            f = v.features
+            if f.shape[1] >= 7:
+                normal = f[:, 4:7]
+                normal = normal / torch.sqrt(
+                    torch.sum(normal * normal, -1, keepdim=True) + 1e-16)
+                f = torch.cat([f[:, :4], normal, f[:, 7:]], dim=-1)
+            feats.append(f)
         return {
-            "voxels": torch.stack([v.voxels for v in vox]),
+            "voxel_features": torch.stack(feats),
             "num_points": torch.stack([v.num_points for v in vox]),
             "coords": torch.stack([v.coords for v in vox]),
             "voxel_mask": torch.stack([v.mask for v in vox]),
         }
-    vox = [voxelize_sorted_mean(points[t], point_mask[t], vcfg)
-           for t in range(L)]
-    feats = []
-    for v in vox:
-        f = v.features
-        if f.shape[1] >= 7:
-            normal = f[:, 4:7]
-            normal = normal / torch.sqrt(
-                torch.sum(normal * normal, -1, keepdim=True) + 1e-16)
-            f = torch.cat([f[:, :4], normal, f[:, 7:]], dim=-1)
-        feats.append(f)
-    return {
-        "voxel_features": torch.stack(feats),
-        "num_points": torch.stack([v.num_points for v in vox]),
-        "coords": torch.stack([v.coords for v in vox]),
-        "voxel_mask": torch.stack([v.mask for v in vox]),
-    }
 
 
 def mean_vfe_ok(cfg) -> bool:

@@ -19,6 +19,7 @@ from ..config.schema import PipelineCfg
 from ..data.prepare import mean_vfe_ok, prepare_example, voxelizer_config
 from ..geometry import np_compose_pose
 from ..models.vfe import simple_voxel_xyzi_normal
+from ..utils.timing import span
 
 
 class StreamingOdometry:
@@ -49,18 +50,23 @@ class StreamingOdometry:
              mask: Optional[np.ndarray] = None) -> np.ndarray:
         """Feed one scan (N, F); returns the current absolute pose
         [t, q]."""
-        pts = torch.as_tensor(points, dtype=torch.float32,
-                              device=self.device)
-        m = (torch.ones(pts.shape[0], dtype=torch.bool, device=self.device)
-             if mask is None else
-             torch.as_tensor(mask, dtype=torch.bool, device=self.device))
-        bev_new, _ = self._features(pts, m)
-        if self._bev is None:
+        with span("stream.push"):
+            with span("h2d"):
+                pts = torch.as_tensor(points, dtype=torch.float32,
+                                      device=self.device)
+                m = (torch.ones(pts.shape[0], dtype=torch.bool,
+                                device=self.device)
+                     if mask is None else
+                     torch.as_tensor(mask, dtype=torch.bool,
+                                     device=self.device))
+            bev_new, _ = self._features(pts, m)
+            if self._bev is None:
+                self._bev = bev_new
+                return self.pose
+            odom = self.net.pair_predict(self._bev, bev_new)["odometry"][0]
             self._bev = bev_new
+            with span("pose"):
+                odom = odom.cpu().numpy()
+                self.pose = np_compose_pose(self.pose[None], odom[None])[0]
+                self.trajectory.append(self.pose.copy())
             return self.pose
-        odom = self.net.pair_predict(self._bev, bev_new)["odometry"][0]
-        self._bev = bev_new
-        odom = odom.cpu().numpy()
-        self.pose = np_compose_pose(self.pose[None], odom[None])[0]
-        self.trajectory.append(self.pose.copy())
-        return self.pose

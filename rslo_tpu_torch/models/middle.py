@@ -108,8 +108,11 @@ def build_geometry(coords: torch.Tensor, mask: torch.Tensor, sparse_shape,
     down_rb = []
     caps = list(capacities) + [capacities[-1]]
     for i, (k, s, p) in enumerate(DOWN_SPECS):
-        nxt = sc.downsample_level(levels[-1], k, s, p,
-                                  out_capacity=caps[min(i + 1, len(caps) - 1)])
+        # L4, the z collapse of L3 under L3's capacity, drops nothing:
+        # the site counters name L1-L3
+        nxt = sc.downsample_level(
+            levels[-1], k, s, p, out_capacity=caps[min(i + 1, len(caps) - 1)],
+            name=f"L{i + 1}" if i < 3 else None)
         if transposed or i < len(DOWN_SPECS) - 1:
             nxt = attach(nxt)   # L4 is looked up only by the transposed
                                 # rulebooks

@@ -25,6 +25,7 @@ from torch import nn
 
 from ..config.schema import PipelineCfg, grid_size
 from ..parallel.spatial import bev_constraint
+from ..utils.timing import span
 from .bev_net import BEVOdomNet, Norm, cycle_pairs, identity_pose_bias
 from .middle import (MaskedBatchNorm, SparseMiddleCov, SpConv,
                      build_band_geometry, build_geometry,
@@ -172,10 +173,12 @@ class OdomNet(nn.Module):
             bevs.append(bev[None])
             covs.append(cov)
             feats.append(f)
-        x1, x2 = cycle_pairs(bevs)
-        # the split hook: this rank's columns under a spatial split
-        # (parallel/spatial.py), the tensor itself otherwise
-        preds = self.bev_net(bev_constraint(torch.cat([x1, x2], dim=-1)))
+        with span("bev_net"):
+            x1, x2 = cycle_pairs(bevs)
+            # the split hook: this rank's columns under a spatial split
+            # (parallel/spatial.py), the tensor itself otherwise
+            preds = self.bev_net(bev_constraint(torch.cat([x1, x2],
+                                                          dim=-1)))
         preds["voxel_features"] = feats        # list[L] of (V, F)
         if with_cov:
             preds["voxel_covs"] = covs         # list[L] of (V, 7)
@@ -190,11 +193,16 @@ class OdomNet(nn.Module):
         """Encode one frame: (V, F) features + coords -> (BEV (H, W, C),
         cov (V, 7), or None with ``with_cov=False``)."""
         if isinstance(self.middle, PillarMiddleCov):
-            return self.middle(voxel_features, coords, vmask, with_cov)
-        geo = self._middle_geometry(coords, vmask, with_cov)
-        return self.middle(voxel_features, geo, with_cov)
+            with span("middle"):
+                return self.middle(voxel_features, coords, vmask, with_cov)
+        with span("geometry"):
+            geo = self._middle_geometry(coords, vmask, with_cov)
+        with span("middle"):
+            return self.middle(voxel_features, geo, with_cov)
 
     def pair_predict(self, bev_prev, bev_new) -> dict:
         """Predict the motion from the previous frame to the new one
         given their cached BEV features (H, W, C) each."""
-        return self.bev_net(torch.cat([bev_prev, bev_new], dim=-1)[None])
+        with span("bev_net"):
+            return self.bev_net(torch.cat([bev_prev, bev_new],
+                                          dim=-1)[None])

@@ -31,6 +31,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import timing
 from .precision import f32_matmul
 
 
@@ -410,13 +411,16 @@ def build_submanifold_index(level: SparseLevel, kernel=(3, 3, 3),
 
 
 def downsample_level(level: SparseLevel, kernel, stride, padding,
-                     out_capacity: int) -> SparseLevel:
+                     out_capacity: int,
+                     name: Optional[str] = None) -> SparseLevel:
     """Active out sites of a strided sparse conv.
 
     An out site o (per dim) is active iff some in site i satisfies
     ``i = s*o + d - p`` for d in [0, k); each in site activates out
     sites in ``[ceil((i + p - k + 1)/s), floor((i + p)/s)]``.  Out sites
-    beyond ``out_capacity`` (the largest ids) are dropped."""
+    beyond ``out_capacity`` (the largest ids) are dropped.  ``name``
+    (e.g. "L1") counts the out sites found and kept while tracing is on
+    (``utils/timing.py::count_sites``)."""
     dev = level.coords.device
     kernel = np.asarray(kernel)
     stride = np.asarray(stride)
@@ -453,6 +457,8 @@ def downsample_level(level: SparseLevel, kernel, stride, padding,
     head = torch.ones_like(ids, dtype=torch.bool)
     head[1:] = ids[1:] != ids[:-1]
     cum = torch.cumsum(head & (ids < sent), 0)
+    if name is not None and timing.tracing_on():
+        timing.count_sites(name, cum[-1], out_capacity)
     pos = torch.searchsorted(
         cum, torch.arange(1, out_capacity + 1, device=dev))
     out_ids = torch.where(pos < n_all,

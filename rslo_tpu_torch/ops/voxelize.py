@@ -20,6 +20,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import timing
+
 
 class VoxelizerConfig(NamedTuple):
     point_cloud_range: tuple  # (x0, y0, z0, x1, y1, z1)
@@ -138,6 +140,8 @@ def voxelize(points: torch.Tensor, point_mask: torch.Tensor,
     coords[torch.where(first, slot, V)] = torch.where(
         first[:, None], cxyz[order].flip(-1), -1)
     num_voxels = torch.sum(head & (voxel_slot < V)).to(torch.int32)
+    if timing.tracing_on():
+        timing.count_sites("L0", torch.sum(head), V)
     point_voxel = torch.empty(N, dtype=torch.int32, device=dev)
     point_voxel[order] = torch.where(keep, voxel_slot, -1)
     return Voxels(voxels[:V], coords[:V], num_points[:V], num_voxels,

@@ -21,6 +21,7 @@ from ..convert import is_flax_kernel
 from ..models.net import OdomNet
 from ..utils.logging import MetricLogger
 from ..utils.param_surgery import flatten, load_pretrained
+from ..utils.timing import span
 from .checkpoint import CheckpointManager
 from .distributed import DataMesh, broadcast_
 from .optim import build_optimizer
@@ -32,8 +33,10 @@ def device_prefetch(batches: Iterable[dict], device):
     """Move each batch's tensors to ``device`` (non-blocking from
     pinned host memory where the batch is numpy)."""
     for b in batches:
-        yield {k: torch.as_tensor(v).to(device, non_blocking=True)
-               for k, v in b.items() if k != "meta"}
+        with span("h2d"):
+            out = {k: torch.as_tensor(v).to(device, non_blocking=True)
+                   for k, v in b.items() if k != "meta"}
+        yield out
 
 
 def shard_batch(batch: dict, mesh: DataMesh) -> dict:

@@ -23,6 +23,7 @@ from ..config.schema import PipelineCfg
 from ..data.prepare import mean_vfe_ok, prepare_example, voxelizer_config
 from ..losses.objective import compute_objective
 from ..utils.mesh_axis import bind_axis
+from ..utils.timing import span
 from .distributed import pmean_
 from .state import TrainState
 
@@ -54,12 +55,17 @@ def loss_and_grads(state: TrainState, batch: Dict[str, torch.Tensor],
     model = state.model.train()
     example = prepare_batch(batch, cfg)
     preds = model(example)
-    out = compute_objective(preds, example, state.alphas, cfg.loss,
-                            cfg.voxelizer.point_cloud_range,
-                            warmup=warmup, self_supervised=self_supervised)
+    with span("objective"):
+        out = compute_objective(preds, example, state.alphas, cfg.loss,
+                                cfg.voxelizer.point_cloud_range,
+                                warmup=warmup,
+                                self_supervised=self_supervised)
     params = state.trainable()
-    grads = torch.autograd.grad(out.total, list(params.values()),
-                                allow_unused=True)
+    # the autograd engine's worker thread launches the backward's work
+    # while this thread waits inside the span
+    with span("backward"):
+        grads = torch.autograd.grad(out.total, list(params.values()),
+                                    allow_unused=True)
     return out, {k: torch.zeros_like(p) if g is None else g
                  for (k, p), g in zip(params.items(), grads)}
 
@@ -75,26 +81,28 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     rank's sample; gradients and aux terms are averaged over the ranks
     before the update (``grad_norm`` is the averaged gradients'), the BN
     running statistics after it."""
-    group = mesh.group if mesh is not None else None
-    ctx = (bind_axis("data", group, mesh.size) if group is not None
-           else contextlib.nullcontext())
-    with ctx:
-        out, grads = loss_and_grads(state, batch, cfg, warmup=warmup,
-                                    self_supervised=self_supervised)
-    metrics = dict(out.aux)
-    if group is not None:
-        metrics = {k: v.clone() for k, v in metrics.items()}
-        pmean_(list(grads.values()) + list(metrics.values()), mesh)
-    metrics.update({f"alpha_{k}": v.detach().clone()
-                    for k, v in state.alphas.items()})
-    metrics["grad_norm"] = optimizer.step(state.trainable(), grads,
-                                          state.opt_state)
-    if group is not None:
-        with torch.no_grad():
-            pmean_([b for b in state.model.buffers()
-                    if b.is_floating_point()], mesh)
-    state.step += 1
-    return state, metrics
+    with span("train.step"):
+        group = mesh.group if mesh is not None else None
+        ctx = (bind_axis("data", group, mesh.size) if group is not None
+               else contextlib.nullcontext())
+        with ctx:
+            out, grads = loss_and_grads(state, batch, cfg, warmup=warmup,
+                                        self_supervised=self_supervised)
+        metrics = dict(out.aux)
+        if group is not None:
+            metrics = {k: v.clone() for k, v in metrics.items()}
+            pmean_(list(grads.values()) + list(metrics.values()), mesh)
+        metrics.update({f"alpha_{k}": v.detach().clone()
+                        for k, v in state.alphas.items()})
+        with span("optimizer"):
+            metrics["grad_norm"] = optimizer.step(state.trainable(), grads,
+                                                  state.opt_state)
+        if group is not None:
+            with torch.no_grad():
+                pmean_([b for b in state.model.buffers()
+                        if b.is_floating_point()], mesh)
+        state.step += 1
+        return state, metrics
 
 
 def eval_step(net: torch.nn.Module, batch: Dict[str, object],

@@ -1,16 +1,77 @@
-"""Profiling / tracing harness (counterpart of
-``rslo_tpu/utils/timing.py``): named sections timed on the host clock,
-each ended by a device synchronization, as the reference's
-measure_time timers do with ``cuda.synchronize``; and a
-``torch.profiler`` trace for deep dives.
+"""Tracing of the program's layers (counterpart of
+``rslo_tpu/utils/timing.py``): named spans and counters, off unless
+switched on, and a ``torch.profiler`` trace for deep dives.
+
+``span(name)`` marks a layer: while tracing is off it is a shared null
+context (one flag check); under ``tracing()`` it opens a
+``torch.profiler.record_function`` range, which lands in any active
+profiler trace on the clock of the card's activities and nests under
+its caller's range.  ``count(name, value)`` keeps a device scalar while
+tracing is on, without waiting for the device; ``read_counters()`` sums
+them on the host and starts them anew.  The counters say how many sites
+each capacity drops (``count_sites``): ``sites_found.<level>`` and
+``sites_kept.<level>``, level ``L0`` the voxelizer's voxels and ``L1``
+to ``L3`` the sparse middle's downsampled levels.
 """
 from __future__ import annotations
 
 import contextlib
-import time
-from collections import defaultdict
+from typing import Dict, List
 
 import torch
+
+_on = False
+_NULL = contextlib.nullcontext()
+_counters: Dict[str, List] = {}
+
+
+def tracing_on() -> bool:
+    """Whether spans and counters record."""
+    return _on
+
+
+@contextlib.contextmanager
+def tracing(on: bool = True):
+    """Switch spans and counters on (or off) for the block, and back to
+    what they were after it."""
+    global _on
+    was = _on
+    _on = on
+    try:
+        yield
+    finally:
+        _on = was
+
+
+def span(name: str):
+    """A context that records the range ``name`` while tracing is on."""
+    if not _on:
+        return _NULL
+    return torch.profiler.record_function(name)
+
+
+def count(name: str, value) -> None:
+    """Add ``value`` (a number or a scalar tensor, read later) to the
+    counter ``name`` while tracing is on."""
+    if _on:
+        _counters.setdefault(name, []).append(value)
+
+
+def count_sites(level: str, found: torch.Tensor, capacity: int) -> None:
+    """Count the ``found`` sites of ``level`` (a scalar tensor) and the
+    ones its ``capacity`` keeps.  A caller checks ``tracing_on()`` first,
+    so that ``found`` costs nothing while tracing is off."""
+    count(f"sites_found.{level}", found)
+    count(f"sites_kept.{level}", torch.clamp(found, max=capacity))
+
+
+def read_counters() -> Dict[str, int]:
+    """{name: the sum of its values} of every counter, which then start
+    anew.  Waits for the device that holds them."""
+    out = {name: sum(int(v) for v in vals)
+           for name, vals in _counters.items()}
+    _counters.clear()
+    return out
 
 
 def _cuda_devices(value) -> set:
@@ -33,48 +94,27 @@ def block_until_ready(value):
     return value
 
 
-class SectionTimer:
-    """Accumulates wall time per named section (device-synchronized)."""
-
-    def __init__(self, enabled: bool = True):
-        self.enabled = enabled
-        self.total = defaultdict(float)
-        self.count = defaultdict(int)
-
-    @contextlib.contextmanager
-    def section(self, name: str, sync_value=None):
-        if not self.enabled:
-            yield
-            return
-        t0 = time.perf_counter()
-        yield
-        if sync_value is not None:
-            block_until_ready(sync_value)
-        self.total[name] += time.perf_counter() - t0
-        self.count[name] += 1
-
-    def avg_ms(self) -> dict:
-        return {k: self.total[k] / max(self.count[k], 1) * 1e3
-                for k in self.total}
-
-    def report(self) -> str:
-        return " | ".join(f"{k}: {v:.2f}ms"
-                          for k, v in sorted(self.avg_ms().items()))
-
-
 @contextlib.contextmanager
 def profile_trace(logdir: str, enabled: bool = True):
     """``torch.profiler`` trace of the block (the CPU, and the CUDA
-    devices where there are any), written into ``logdir`` as a Chrome
-    trace (``*.pt.trace.json``, which TensorBoard's profiler plugin and
-    Perfetto read)."""
+    devices where there are any), with tracing on so that it carries
+    the layers' spans, written into ``logdir`` as a Chrome trace
+    (``*.pt.trace.json``, which TensorBoard's profiler plugin and
+    Perfetto read).  The counters the block keeps are dropped at its
+    end, unless tracing was on before it (a reader of its own)."""
     if not enabled:
         yield
         return
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(
-            activities=acts,
-            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)):
-        yield
+    was = _on
+    try:
+        with torch.profiler.profile(
+                activities=acts,
+                on_trace_ready=torch.profiler.tensorboard_trace_handler(
+                    logdir)), tracing():
+            yield
+    finally:
+        if not was:
+            _counters.clear()
