@@ -16,9 +16,15 @@ The sparse middle's output contract, computed with dense 2-D convs:
     covariance parameters.
 
 The convs compute in bfloat16 with bfloat16 bias, as the JAX module
-hard-codes; the dense head computes in float32.  Padding follows flax's
-``padding="SAME"`` (``parallel/spatial.py::pad_same``).  Submodules
-carry the flax auto-names (``Conv2dBNRelu_<i>``, ``Dense_<i>``) so
+hard-codes; the dense head computes in float32.  Every map between the
+image and the BEV is NCHW-shaped and channels_last in memory (NHWC, the
+layout cuDNN's bfloat16 kernels read and write), so no conv transposes
+its input or its output.  Padding follows flax's ``padding="SAME"``
+(``parallel/spatial.py::same_pad``) inside the conv: symmetric pads as
+the conv's own padding, the (0, 1) of a stride-2 conv on an even size
+as a zero first row or column of the kernel with one more pad on each
+side, so no conv reads a padded copy of its input.  Submodules carry
+the flax auto-names (``Conv2dBNRelu_<i>``, ``Dense_<i>``) so
 ``convert.py`` maps the parameters by name.  ``MiddleCfg.remat`` is
 accepted and not applied, as for the sparse middle.
 """
@@ -31,20 +37,36 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.schema import MiddleCfg
-from ..parallel.spatial import pad_same
+from ..parallel.spatial import same_pad
 from .bev_net import Norm
 
 _BF16 = torch.bfloat16
+_NHWC = torch.channels_last
 # the encoder's (width index into (c1, c2, c3) doubled, stride) plan
 _ENCODER = ((1, 1), (1, 1), (2, 2), (2, 1), (2, 2), (2, 1), (2, 1),
             (3, 2), (3, 1), (3, 1))
 _FULL, _QUARTER = 1, 6      # encoder outputs the decoder reads
 
 
+def same_conv2d(x: torch.Tensor, w: torch.Tensor,
+                stride: int) -> torch.Tensor:
+    """``F.conv2d(pad_same(x, k, stride), w, None, stride)`` for a k x k
+    ``w``, with the pads inside the conv, so it reads ``x`` itself: a
+    symmetric SAME pad (p, p) is the conv's padding p; a (p, p + 1),
+    the (0, 1) of a stride-2 conv on an even size, is a zero first row
+    or column of the kernel and padding p + 1, whose extra leading pad
+    meets only that zero tap."""
+    (ph, ph1), (pw, pw1) = (same_pad(n, w.shape[-1], stride)
+                            for n in x.shape[-2:])
+    if (ph, pw) != (ph1, pw1):
+        w = F.pad(w, (pw1 - pw, 0, ph1 - ph, 0))
+    return F.conv2d(x, w, None, stride, (ph1, pw1))
+
+
 class Conv2dBNRelu(nn.Module):
     """3x3 SAME conv in bfloat16 (bias added in bfloat16 after the
     conv's rounding), then ``Norm`` unless bn_type is "none", then relu.
-    NCHW in and out."""
+    NCHW-shaped in and out, channels_last in memory."""
 
     def __init__(self, in_features: int, features: int, stride: int = 1,
                  bn_type: str = "none"):
@@ -55,8 +77,8 @@ class Conv2dBNRelu(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c = self.Conv_0
-        s = c.stride[0]
-        y = F.conv2d(pad_same(x, 3, s), c.weight.to(_BF16), None, s)
+        y = same_conv2d(x, c.weight.to(_BF16, memory_format=_NHWC),
+                        c.stride[0])
         y = y + c.bias.to(_BF16).view(1, -1, 1, 1)
         if hasattr(self, "Norm_0"):
             y = self.Norm_0(y)
@@ -135,19 +157,29 @@ class PillarMiddleCov(nn.Module):
         """Returns (bev (ny/8, nx/8, 2 * c3) float32, cov (V, 7) float32);
         ``with_cov=False`` skips the decoder and the head and returns
         None for cov."""
+        # (ny, nx, C) is NHWC: view it NCHW-shaped with channels_last
+        # strides, which the cast keeps (permute(2, 0, 1)[None] would
+        # give the batch the stride C, which reads as NCHW)
         x = self.pillar_image(voxel_features, coords, vmask)
-        x = x.permute(2, 0, 1)[None].to(_BF16)
+        x = x[None].permute(0, 3, 1, 2).to(_BF16)
         for i, conv in enumerate(self._encoder):
             x = conv(x)
             if i == _FULL:
                 x_full = x
             elif i == _QUARTER:
                 x_quarter = x
-        bev = x[0].permute(1, 2, 0).float()
+        bev = x[0].permute(1, 2, 0).float()        # cast of an HWC view
         if not with_cov:
             return bev, None
-        y = x_quarter.repeat_interleave(4, 2).repeat_interleave(4, 3)
-        y = torch.cat([y, x_full], dim=1)
+        # the x4 nearest upsample and the concat in one copy, on NHWC
+        # views: the upsample is a broadcast of the 1/4 map
+        n, c, h, w = x_quarter.shape
+        up = x_quarter.permute(0, 2, 3, 1)[:, :, None, :, None].expand(
+            n, h, 4, w, 4, c)
+        full = x_full.permute(0, 2, 3, 1).reshape(n, h, 4, w, 4,
+                                                  x_full.shape[1])
+        y = torch.cat([up, full], dim=-1).view(n, 4 * h, 4 * w, -1)
+        y = y.permute(0, 3, 1, 2)
         y = self.Conv2dBNRelu_11(self.Conv2dBNRelu_10(y))
         # padded coords are -1 and wrap to the last row and column, as
         # in the JAX module; the mask below zeroes their rows

@@ -17,6 +17,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+from torch.overrides import TorchFunctionMode
 
 from torch_port_helpers import (jax_variables, np_, port_cfg, tiny_scans,
                                 to_jax, to_port, tt)
@@ -31,9 +33,13 @@ from rslo_tpu.losses.objective import compute_objective as jax_objective
 from rslo_tpu.models.middle_pillar import PillarMiddleCov as JaxPillar
 from rslo_tpu.models.net import OdomNet as JaxOdomNet
 from rslo_tpu.train import optim as jax_optim
+from rslo_tpu_torch.config.schema import MiddleCfg
 from rslo_tpu_torch.convert import (flax_path, load_flax_variables,
                                     state_dict_from_flax, to_flax_leaf)
-from rslo_tpu_torch.models.middle_pillar import PillarMiddleCov, z_onehot
+from rslo_tpu_torch.models.middle_pillar import (Conv2dBNRelu,
+                                                 PillarMiddleCov,
+                                                 same_conv2d, z_onehot)
+from rslo_tpu_torch.parallel.spatial import pad_same, same_pad
 from rslo_tpu_torch.models.net import OdomNet
 from rslo_tpu_torch.train import optim
 from rslo_tpu_torch.train.loop import make_optimizer
@@ -172,6 +178,100 @@ def test_pillar_middle_matches_jax(middle_case):
     valid = np.asarray(middle_case["inputs"][2])
     assert (np_(cov)[valid][:, :3] > 0).all()
     assert (np_(cov)[~valid] == 0).all() and (~valid).any()
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("hw", [(12, 16), (12, 15), (11, 16), (11, 15)],
+                         ids=["even", "even_odd", "odd_even", "odd"])
+def test_same_padding_inside_the_conv(hw, stride, dtype):
+    """The pads folded into the conv (``same_conv2d``, and through it
+    ``Conv2dBNRelu``) against ``pad_same`` then an unpadded conv, both
+    on one channels_last map (the CPU's NCHW and NHWC convs sum in
+    other orders): bit for bit where the pads are symmetric, within
+    1e-6 where the zero first tap of a (0, 1) pad may reorder the sum,
+    in float32; ``BF16_TOL`` for the bfloat16 module."""
+    g = torch.Generator().manual_seed(sum(hw) + stride)
+    x = torch.randn((1, 6) + hw, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    conv = Conv2dBNRelu(6, 5, stride)
+    with torch.no_grad():
+        conv.Conv_0.bias.normal_(generator=g)
+    w, b = conv.Conv_0.weight.detach(), conv.Conv_0.bias.detach()
+    if dtype == "f32":
+        got = same_conv2d(x, w, stride)
+        want = F.conv2d(pad_same(x, 3, stride), w, None, stride)
+        assert got.shape == want.shape
+        symmetric = all(len(set(same_pad(n, 3, stride))) == 1 for n in hw)
+        if symmetric:
+            assert torch.equal(got, want)
+        else:
+            np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0,
+                                       atol=1e-6)
+        return
+    xb = x.to(torch.bfloat16)
+    with torch.no_grad():
+        got = conv(xb)
+    want = F.relu(F.conv2d(pad_same(xb, 3, stride),
+                           w.to(torch.bfloat16), None, stride)
+                  + b.to(torch.bfloat16).view(1, -1, 1, 1))
+    assert got.dtype == torch.bfloat16
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               **BF16_TOL)
+
+
+class _RecordLayouts(TorchFunctionMode):
+    """Records each ``F.conv2d``'s input map and stride and each
+    ``F.pad``'s input."""
+
+    def __init__(self):
+        super().__init__()
+        self.conv_inputs, self.pad_inputs = [], []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        if func is F.conv2d:
+            self.conv_inputs.append((args[0], args[3]))
+        elif func is F.pad:
+            self.pad_inputs.append(args[0])
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("grid,with_cov", [((64, 48), True),
+                                           ((64, 48), False),
+                                           ((45, 27), False)],
+                         ids=["even", "even_no_decoder", "odd_no_decoder"])
+def test_pillar_middle_reads_channels_last_maps(grid, with_cov):
+    """Every conv of the pillar middle reads a channels_last map that
+    no op copied for it: ``F.pad`` pads only the kernels of the
+    stride-2 convs on an even size, never a map; 12 convs a frame, 10
+    without the decoder."""
+    ny, nx = grid
+    mod = PillarMiddleCov(MiddleCfg(name="PillarMiddleCov",
+                                    channels=(8, 8, 16, 16)),
+                          (11, ny, nx))
+    g = torch.Generator().manual_seed(ny)
+    V = 300
+    coords = torch.stack([torch.randint(0, 10, (V,), generator=g),
+                          torch.randint(0, ny, (V,), generator=g),
+                          torch.randint(0, nx, (V,), generator=g)], 1)
+    feats = torch.randn(V, 7, generator=g)
+    vmask = torch.rand(V, generator=g) < 0.9
+    rec = _RecordLayouts()
+    with torch.no_grad(), rec:
+        bev, cov = mod(feats, coords, vmask, with_cov=with_cov)
+    n_convs = 12 if with_cov else 10
+    assert len(rec.conv_inputs) == n_convs
+    assert all(x.is_contiguous(memory_format=torch.channels_last)
+               for x, _ in rec.conv_inputs)
+    uneven = [x for x, s in rec.conv_inputs
+              if any(same_pad(n, 3, s) == (0, 1) for n in x.shape[-2:])]
+    assert len(uneven) == (3 if grid == (64, 48) else 2)
+    assert len(rec.pad_inputs) == len(uneven)
+    assert all(p.shape[-2:] == (3, 3) and p.shape[0] in (16, 32)
+               for p in rec.pad_inputs)
+    assert bev.shape == (-(-ny // 8), -(-nx // 8), 32)
+    assert bev.is_contiguous() and (cov is not None) == with_cov
 
 
 @pytest.mark.parametrize("middle_bn", ["none", "bn"])
